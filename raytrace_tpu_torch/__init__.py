@@ -1,0 +1,31 @@
+"""raytrace_tpu_torch — the path tracer on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of ``raytrace_tpu`` (JAX/Pallas on a TPU), which stays in the
+repository as the reference.  Same scene, camera, RNG streams and wavefront
+state machine; the Pallas kernels on the render path become hand-written CUDA
+kernels for ``sm_90a`` (``csrc/``, built with nvcc on first use by
+``_build.py``), each with a plain torch version that the CPU runs:
+
+- ``ops/gridkernel.py``: the grid-DDA wavefront step (main path);
+- ``ops/megakernel.py``: the brute-force wavefront step (its anchor).
+
+This package imports torch and numpy only, never jax or ``raytrace_tpu``.
+Public API mirrors the reference C ABI (``ray_trace``).
+"""
+
+from .api import ray_trace, render_image
+from .config import RenderCallInfo, RenderConfig
+from .models.scene import SceneArrays, generate_random_scene, three_sphere_scene
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderCallInfo",
+    "RenderConfig",
+    "SceneArrays",
+    "generate_random_scene",
+    "three_sphere_scene",
+    "ray_trace",
+    "render_image",
+    "__version__",
+]

@@ -1,0 +1,132 @@
+"""Build and load the CUDA kernels (nvcc -> one shared library -> ctypes).
+
+The sources in ``csrc/`` have a plain C interface and include no PyTorch
+headers, so one nvcc call builds them in seconds.  The library lands in
+``build/kernels/<hash>/`` at the repository root (gitignored), keyed by a
+hash of the sources and flags; the first call in a fresh checkout builds it,
+later calls load it.  Flags: ``sm_90a`` (Hopper), ``--fmad=false`` and no
+fast math, because the kernels must keep the JAX package's IEEE op sequence
+(see ``csrc/wavefront.cuh``).
+
+Nothing here runs at import: ``library()`` builds on first use and raises if
+nvcc is missing or the build fails.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+SOURCES = ("megakernel.cu", "gridkernel.cu")
+HEADERS = ("wavefront.cuh",)
+ARCH = "sm_90a"
+FLAGS = ("-std=c++17", "-O3", "--fmad=false")
+LIB_NAME = "libraytrace_kernels.so"
+# PTX instructions that would break the IEEE contract (fast-math lowering)
+FORBIDDEN_PTX = ("sqrt.approx.f32", "div.approx.f32", "div.full.f32", "rsqrt",
+                 "sin.approx", "cos.approx")
+
+_VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # 8 pointers, 13 ints, pmin, device, stream
+    "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 13 + [_FLOAT, _INT, _VOIDP],
+    # 12 pointers (ttab may be NULL), 18 ints, pmin, device, stream
+    "rt_grid_megakernel_step": [_VOIDP] * 12 + [_INT] * 18 + [_FLOAT, _INT, _VOIDP],
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin): "
+                       "the CUDA kernels cannot be built")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join((ARCH,) + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> dict:
+    """Build the shared library and one PTX file per kernel source if they
+    are missing.  Returns {"lib", "ptx", "seconds", "log"}; ``seconds`` is 0
+    when nothing was built, ``log`` holds ptxas' register report."""
+    out = build_dir()
+    lib = out / LIB_NAME
+    ptx = {name: out / (Path(name).stem + ".ptx") for name in SOURCES}
+    log_path = out / "build.log"
+    if lib.exists() and all(p.exists() for p in ptx.values()):
+        return dict(lib=lib, ptx=ptx, seconds=0.0,
+                    log=log_path.read_text() if log_path.exists() else "")
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        tmp_lib = Path(tmp) / LIB_NAME
+        log = _run([nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
+                    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(tmp_lib), *SOURCES])
+        for name, dst in ptx.items():
+            tmp_ptx = Path(tmp) / dst.name
+            _run([nvcc, "-arch=compute_90a", *FLAGS, "-ptx", "-o", str(tmp_ptx), name])
+            os.replace(tmp_ptx, dst)
+        # the library last: its presence marks a complete build
+        (Path(tmp) / "build.log").write_text(log)
+        os.replace(Path(tmp) / "build.log", log_path)
+        os.replace(tmp_lib, lib)
+    return dict(lib=lib, ptx=ptx, seconds=time.perf_counter() - t0, log=log)
+
+
+def forbidden_ptx(ptx_paths) -> dict:
+    """{source: [forbidden instruction lines]} over the kernels' PTX."""
+    found = {}
+    for name, path in ptx_paths.items():
+        bad = [ln.strip() for ln in Path(path).read_text().splitlines()
+               if any(f in ln for f in FORBIDDEN_PTX)]
+        if bad:
+            found[name] = bad
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()["lib"]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _INT
+    lib.rt_error_string.argtypes = [_INT]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(err: int) -> str:
+    return f"{err} ({library().rt_error_string(err).decode()})"

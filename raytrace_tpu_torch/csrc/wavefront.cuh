@@ -1,0 +1,243 @@
+// Per-lane pieces of the wavefront state machine, shared by both kernels
+// (megakernel.cu, gridkernel.cu): the TEA + LCG random streams, the camera
+// ray, the ray-sphere quadratic, closest-hit shading with speculative draws,
+// and fast mode's Russian-roulette probability.
+//
+// Bit parity with the JAX package and the plain torch versions is the
+// contract, so every expression keeps the JAX operand order: explicit
+// x + y + z sums, no FMA contraction (built with --fmad=false), IEEE sqrt and
+// divide (no fast math: sqrt.rn / div.rn, never rsqrt), `x * x` for `**2`,
+// misses as BIG with strict-< winner updates, and NaN-propagating min/max
+// (jnp.minimum/maximum), never fminf/fmaxf.  The canRefract sqrt is not
+// clamped: its NaN is what makes total internal reflection draw no number.
+#pragma once
+
+#include <stdint.h>
+
+namespace rt {
+
+constexpr float BIG = 3.0e38f;  // "no hit" t
+constexpr float T_MIN = 0.001f;  // traceRayEXT tMin, shader.rgen:75
+constexpr float T_MAX = 10000.0f;  // MAX_RAY_COLLISION_DISTANCE
+constexpr float SKY_R = 0.7f, SKY_G = 0.8f, SKY_B = 1.0f;  // shader.rmiss:15
+
+// f32 state rows shared by both layouts
+constexpr int R_O = 0, R_D = 3, R_FX = 6, R_FY = 7, R_THR = 8;
+// u32 state rows shared by both layouts
+constexpr int U_SEED = 0, U_M = 1, U_SIDX = 2, U_DEPTH = 3, U_ALIVE = 4;
+// scalar slots of the int32 `scal` row
+constexpr int S_SPP = 0, S_NUMBER = 1, S_Y0 = 2, S_SEEDY0 = 3, S_OFFX = 4;
+// viewport slots of the f32 `vpr` row
+constexpr int V_H = 0, V_V = 3, V_UL = 6, V_UP = 9, V_RIGHT = 12, V_FROM = 15,
+              V_AP = 18, V_W = 19, V_HGT = 20;
+
+struct RR {  // fast mode (Russian roulette); on == 0 is exact mode
+  int on, d0, d1;
+  float pmin;
+};
+
+// jnp.minimum / jnp.maximum: NaN in, NaN out
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a < b ? a : b);
+}
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a > b ? a : b);
+}
+
+// ---- RNG (random.glsl) -----------------------------------------------------
+__device__ __forceinline__ uint32_t tea_hash(uint32_t v0, uint32_t v1) {
+  uint32_t s0 = 0u;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    s0 += 0x9E3779B9u;
+    v0 += (((v1 << 4) + 0xA341316Cu) ^ (v1 + s0)) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += (((v0 << 4) + 0xAD90777Du) ^ (v0 + s0)) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+__device__ __forceinline__ float random_float(uint32_t& seed) {
+  seed = seed * 1664525u + 1013904223u;
+  return (float)(int32_t)(seed & 0x00FFFFFFu) / 16777216.0f;
+}
+
+__device__ __forceinline__ float random_pm1(uint32_t& seed) {  // [-1, 1)
+  return random_float(seed) * 2.0f + -1.0f;
+}
+
+__device__ __forceinline__ void norm3(float& x, float& y, float& z) {
+  float inv = 1.0f / sqrtf(x * x + y * y + z * z);
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+// ---- camera (shader.rgen:57,107-115): exactly 4 draws ---------------------
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+__device__ __forceinline__ Ray camera_ray(uint32_t& seed, float fx, float fy,
+                                          const float* __restrict__ vpr) {
+  float jx = random_float(seed);
+  float jy = random_float(seed);
+  float u = (fx + jx) / vpr[V_W];
+  float v = (fy + jy) / vpr[V_HGT];
+  float r1 = random_pm1(seed);
+  float r2 = random_pm1(seed);
+  float inv_l = 1.0f / sqrtf(r1 * r1 + r2 * r2);
+  float ap = vpr[V_AP] * 0.5f;
+  float rx = ap * (r1 * inv_l);
+  float ry = ap * (r2 * inv_l);
+  Ray r;
+  r.ox = vpr[V_FROM + 0] + vpr[V_RIGHT + 0] * rx + vpr[V_UP + 0] * ry;
+  r.oy = vpr[V_FROM + 1] + vpr[V_RIGHT + 1] * rx + vpr[V_UP + 1] * ry;
+  r.oz = vpr[V_FROM + 2] + vpr[V_RIGHT + 2] * rx + vpr[V_UP + 2] * ry;
+  float tx = vpr[V_UL + 0] + vpr[V_H + 0] * u - vpr[V_V + 0] * v;
+  float ty = vpr[V_UL + 1] + vpr[V_H + 1] * u - vpr[V_V + 1] * v;
+  float tz = vpr[V_UL + 2] + vpr[V_H + 2] * u - vpr[V_V + 2] * v;
+  r.dx = tx - r.ox;
+  r.dy = ty - r.oy;
+  r.dz = tz - r.oz;
+  norm3(r.dx, r.dy, r.dz);
+  return r;
+}
+
+// ---- ray-sphere quadratic (shader.rint:44-60) ------------------------------
+// Per-ray terms a = d.d, od = o.d, oo = o.o, inv_a = 1/a are hoisted by the
+// caller; kc = |c|^2 - r^2 comes precomputed in f64 from the tables.
+struct RayTerms {
+  float ox, oy, oz, dx, dy, dz, a, od, oo, inv_a;
+};
+
+__device__ __forceinline__ RayTerms ray_terms(float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  RayTerms q;
+  q.ox = ox; q.oy = oy; q.oz = oz;
+  q.dx = dx; q.dy = dy; q.dz = dz;
+  q.a = dx * dx + dy * dy + dz * dz;
+  q.od = ox * dx + oy * dy + oz * dz;
+  q.oo = ox * ox + oy * oy + oz * oz;
+  q.inv_a = 1.0f / q.a;
+  return q;
+}
+
+__device__ __forceinline__ float quadratic(const RayTerms& q, float cx, float cy,
+                                           float cz, float kc, bool skip_tmax) {
+  float cd = cx * q.dx + cy * q.dy + cz * q.dz;
+  float co = cx * q.ox + cy * q.oy + cz * q.oz;
+  float b = q.od - cd;
+  float c = q.oo - 2.0f * co + kc;
+  float disc = b * b - q.a * c;
+  float sq = sqrtf(disc);  // NaN on a miss: every comparison below is false
+  float t1 = (-b - sq) * q.inv_a;
+  float t2 = (-b + sq) * q.inv_a;
+  bool t1_ok = skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX);
+  bool t2_ok = skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX);
+  return t1_ok ? t1 : (t2_ok ? t2 : BIG);
+}
+
+// ---- closest-hit shading (shader.rchit; ops/shading_rows.py) ---------------
+struct Hit {  // winner attributes
+  float cenx, ceny, cenz, mat, tex, c0x, c0y, c0z, c1x, c1y, c1z, fuzz;
+};
+
+struct Shade {
+  float px, py, pz;  // hit point
+  float ax, ay, az;  // albedo
+  float sdx, sdy, sdz;  // scatter direction (not normalized)
+  bool does_scatter;
+  uint32_t seed_h;  // seed after the material's draws
+};
+
+__device__ __forceinline__ Shade shade(const RayTerms& q, float t, uint32_t seed,
+                                       const Hit& h) {
+  Shade s;
+  s.px = q.ox + t * q.dx;
+  s.py = q.oy + t * q.dy;
+  s.pz = q.oz + t * q.dz;
+  float nx = s.px - h.cenx, ny = s.py - h.ceny, nz = s.pz - h.cenz;
+  norm3(nx, ny, nz);
+  float ddn = nx * q.dx + ny * q.dy + nz * q.dz;
+  bool front = ddn < 0.0f;
+  if (!front) {
+    nx = -nx;
+    ny = -ny;
+    nz = -nz;
+  }
+
+  // 3-D sine checker, size 6 (shader.rchit:53-64)
+  float sines = sinf(6.0f * s.px) * sinf(6.0f * s.py) * sinf(6.0f * s.pz);
+  bool use_c1 = (h.tex > 0.5f) && !(sines > 0.0f);
+  s.ax = use_c1 ? h.c1x : h.c0x;
+  s.ay = use_c1 ? h.c1y : h.c0y;
+  s.az = use_c1 ? h.c1z : h.c0z;
+
+  // speculative draws keep the GLSL draw counts (diffuse/metal 3, glass 0/1)
+  uint32_t seed3 = seed;
+  float ux = random_pm1(seed3);
+  float uy = random_pm1(seed3);
+  float uz = random_pm1(seed3);
+  norm3(ux, uy, uz);
+  uint32_t seed1 = seed;
+  float refr_rand = random_float(seed1);
+
+  float sdx_d = nx + ux, sdy_d = ny + uy, sdz_d = nz + uz;
+  bool near0 = fabsf(sdx_d) < 1e-8f && fabsf(sdy_d) < 1e-8f && fabsf(sdz_d) < 1e-8f;
+  float ndd = front ? ddn : -ddn;  // == dot(d, flipped n) bitwise
+  if (near0) {
+    sdx_d = nx;
+    sdy_d = ny;
+    sdz_d = nz;
+  }
+
+  float rx = q.dx - 2.0f * ndd * nx;
+  float ry = q.dy - 2.0f * ndd * ny;
+  float rz = q.dz - 2.0f * ndd * nz;
+  float mx = rx + h.fuzz * ux, my = ry + h.fuzz * uy, mz = rz + h.fuzz * uz;
+  norm3(mx, my, mz);
+  bool metal_scatters = (mx * nx + my * ny + mz * nz) > 0.0f;
+
+  float eta = front ? 1.0f / h.fuzz : h.fuzz;
+  float cos_t = -ndd;
+  float omc2 = 1.0f - ndd * ndd;
+  bool can_refract = (eta * sqrtf(omc2)) <= 1.0f;  // unclamped: NaN -> false
+  float qf = (1.0f - eta) / (1.0f + eta);
+  float r0 = qf * qf;
+  float om = 1.0f - cos_t;
+  float om2 = om * om;
+  float reflectance = r0 + (1.0f - r0) * om2 * om2 * om;
+  bool does_refract = can_refract && (reflectance < refr_rand);
+  float k = 1.0f - eta * eta * omc2;
+  float sqk = sqrtf(jmax(k, 0.0f));
+  float gx = rx, gy = ry, gz = rz;
+  if (does_refract) {
+    gx = eta * q.dx - (eta * ndd + sqk) * nx;
+    gy = eta * q.dy - (eta * ndd + sqk) * ny;
+    gz = eta * q.dz - (eta * ndd + sqk) * nz;
+  }
+
+  bool is_metal = (h.mat > 0.5f) && (h.mat < 1.5f);
+  bool is_refr = h.mat > 1.5f;
+  s.sdx = is_metal ? mx : (is_refr ? gx : sdx_d);
+  s.sdy = is_metal ? my : (is_refr ? gy : sdy_d);
+  s.sdz = is_metal ? mz : (is_refr ? gz : sdz_d);
+  s.does_scatter = metal_scatters || !is_metal;
+  s.seed_h = is_refr ? (can_refract ? seed1 : seed) : seed3;
+  return s;
+}
+
+// fast mode: survival p = clamp(max(new throughput), pmin, 1), halved past d1
+__device__ __forceinline__ float rr_probability(float ntx, float nty, float ntz,
+                                                int dnext, const RR& rr) {
+  float p = jmin(1.0f, jmax(rr.pmin, jmax(ntx, jmax(nty, ntz))));
+  if (rr.d1 && dnext >= rr.d1) p = p * 0.5f;
+  return p;
+}
+
+// first TEA seed of a pixel (shader.rgen:40)
+__device__ __forceinline__ uint32_t pixel_seed(int px, int py_seed, uint32_t number) {
+  return tea_hash(tea_hash((uint32_t)px, (uint32_t)py_seed), number);
+}
+
+}  // namespace rt

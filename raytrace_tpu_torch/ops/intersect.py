@@ -1,0 +1,112 @@
+"""Ray-sphere intersection: the spec form and the packed sphere table.
+
+Port of ``raytrace_tpu/ops/intersect.py`` (``BIG``, ``sphere_constants``,
+``intersect_bruteforce``) plus ``sphere_table`` and its column constants from
+``raytrace_tpu/ops/pallas_intersect.py``: ``models/grid.build_grid`` reads
+the table's f64-precomputed ``kc`` column, and the megakernel brute-forces
+the table.
+
+Math matches calculateIntersections (shader.rint:44-60): half-b quadratic,
+report t1 if in [tMin, tMax] else t2; closest hit is an argmin over spheres
+(lowest index wins ties).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import fp
+
+BIG = np.float32(3.0e38)  # sentinel "no hit" t (finite to keep argmin sane)
+
+# sphere-table columns ([S, 24])
+_C_CX, _C_CY, _C_CZ, _C_KC, _C_VALID = 0, 1, 2, 3, 4
+_C_ATTR0 = 8  # cols 8..23: center, mat, tex, c0.rgb, c1.rgb, fuzz (16 cols)
+
+# attribute columns (offsets into cols 8..23 / rows of the transposed atab)
+A_CX, A_CY, A_CZ = 0, 1, 2
+A_MAT, A_TEX = 3, 4
+A_C0, A_C1 = 5, 8  # rgb triples
+A_ATTR = 11
+
+S_BLOCK = 512  # large tables are padded to a multiple of this many rows
+
+
+def sphere_constants(centers, radii) -> np.ndarray:
+    """|c|^2 - r^2 per sphere, computed in float64 then cast to f32.
+
+    For the ground sphere |c|^2 and r^2 are ~1e6 and their difference is 1.0 —
+    the f64 precompute removes the cancellation the reference pays in f32."""
+    c64 = np.asarray(centers, np.float64)
+    r64 = np.asarray(radii, np.float64)
+    return (np.sum(c64 * c64, axis=1) - r64 * r64).astype(np.float32)
+
+
+def intersect_bruteforce(o, d, centers, radii, valid, tmin, tmax):
+    """Direct GLSL-order form. o,d: [N,3]; centers: [S,3]; radii,valid: [S].
+
+    Returns (t [N], idx [N] int64, hit [N] bool)."""
+    oc = o[:, None, :] - centers[None, :, :]  # [N,S,3]
+    # explicit x+y+z sum order: bit-parity with the CPU oracle's math
+    a = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])[:, None]
+    b = (oc[:, :, 0] * d[:, None, 0] + oc[:, :, 1] * d[:, None, 1]
+         + oc[:, :, 2] * d[:, None, 2])
+    c = (oc[:, :, 0] * oc[:, :, 0] + oc[:, :, 1] * oc[:, :, 1]
+         + oc[:, :, 2] * oc[:, :, 2] - (radii * radii)[None, :])
+    disc = b * b - a * c
+    ok = disc >= 0.0
+    sq = fp.sqrt(torch.where(ok, disc, 0.0))
+    t1 = (-b - sq) / a
+    t2 = (-b + sq) / a
+    t1_ok = ok & (t1 >= tmin) & (t1 <= tmax)
+    t2_ok = ok & (t2 >= tmin) & (t2 <= tmax)
+    big = torch.tensor(BIG, dtype=torch.float32, device=o.device)
+    t = torch.where(t1_ok, t1, torch.where(t2_ok, t2, big))
+    t = torch.where(valid[None, :], t, big)
+    t_min = torch.amin(t, dim=1)
+    idx = torch.argmin(t, dim=1)  # first minimal index on ties
+    return t_min, idx, t_min < big
+
+
+def sphere_table(scene_arrays) -> np.ndarray:
+    """Host-side [S, 24] packed table from a SceneArrays-like object with
+    centers/radii/material/texture/color0/color1/attr fields."""
+    centers = np.asarray(scene_arrays.centers, np.float32)
+    radii = np.asarray(scene_arrays.radii, np.float32)
+    s = centers.shape[0]
+    if hasattr(scene_arrays, "n_spheres"):
+        n = int(scene_arrays.n_spheres)
+        valid = (np.arange(s) < n).astype(np.float32)
+    else:
+        valid = np.asarray(scene_arrays.valid, np.float32)
+    c64 = centers.astype(np.float64)
+    kc = (np.sum(c64 * c64, axis=1) - radii.astype(np.float64) ** 2).astype(np.float32)
+    # padding rows get kc = +3e30: c becomes huge, disc goes hugely negative,
+    # sqrt(disc) is NaN and every root comparison fails -> automatic miss
+    kc = np.where(valid > 0, kc, np.float32(3e30))
+    if s > S_BLOCK and s % S_BLOCK:
+        pad = S_BLOCK - s % S_BLOCK
+        centers = np.concatenate([centers, np.zeros((pad, 3), np.float32)])
+        kc = np.concatenate([kc, np.full((pad,), 3e30, np.float32)])
+        valid = np.concatenate([valid, np.zeros((pad,), np.float32)])
+        s += pad
+
+        def _padded(a, fill=0.0):
+            out = np.full((s,) + np.asarray(a).shape[1:], fill, np.float32)
+            out[: s - pad] = np.asarray(a, np.float32)
+            return out
+    else:
+        def _padded(a, fill=0.0):
+            return np.asarray(a, np.float32)
+    tab = np.zeros((s, 24), np.float32)
+    tab[:, _C_CX:_C_CZ + 1] = centers
+    tab[:, _C_KC] = kc
+    tab[:, _C_VALID] = valid
+    tab[:, _C_ATTR0 + A_CX : _C_ATTR0 + A_CZ + 1] = centers
+    tab[:, _C_ATTR0 + A_MAT] = _padded(scene_arrays.material)
+    tab[:, _C_ATTR0 + A_TEX] = _padded(scene_arrays.texture)
+    tab[:, _C_ATTR0 + A_C0 : _C_ATTR0 + A_C0 + 3] = _padded(scene_arrays.color0)
+    tab[:, _C_ATTR0 + A_C1 : _C_ATTR0 + A_C1 + 3] = _padded(scene_arrays.color1)
+    tab[:, _C_ATTR0 + A_ATTR] = _padded(scene_arrays.attr)
+    return tab

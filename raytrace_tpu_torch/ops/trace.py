@@ -1,0 +1,512 @@
+"""Persistent-wavefront path-tracing core (the port's ``traceRaysKHR``).
+
+Port of ``raytrace_tpu/ops/trace.py``.  Each lane owns M strided pixels and
+renders their samples back-to-back; each wavefront iteration traces one ray
+segment per lane (intersect -> shade -> scatter or terminate), and a
+terminated lane immediately regenerates its pixel's next sample or moves to
+its next pixel, so lane occupancy stays high.  The per-pixel TEA seed and the
+carried LCG stream reproduce the reference GLSL's draws exactly.
+
+Backends:
+
+- ``bruteforce``: the eager spec path (``render_band_core``'s generic loop),
+  in the oracle's fp op order.  Runs on any device; it is the parity anchor.
+- ``mega`` / ``grid``: the kernel loop ``_render_band_mega`` — state packed
+  into row-major ``[rows, lanes]`` f32/int32 tensors, a host loop over the
+  wavefront step (``ops/megakernel.py`` brute force, ``ops/gridkernel.py``
+  grid DDA) until no lane is alive, then the accumulator is unpacked.  The
+  step wrapper decides between the CUDA kernel and its plain torch version
+  by the state tensor's device.
+
+Seed/uv conventions: ``y0`` is the band's global row (uv) and ``seed_y0`` the
+row origin for seeding; internal chunking passes ``seed_y0 = y0`` so chunked
+renders equal the unchunked render bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import MAX_DEPTH, MAX_RAY_COLLISION_DISTANCE, T_MIN
+from ..models.camera import Camera, calculate_viewport
+from ..models.grid import GridTables, build_grid
+from ..models.scene import SceneArrays
+from . import fp
+from . import materials
+from . import rng as rngops
+from .intersect import intersect_bruteforce, sphere_constants, sphere_table
+
+_SKY = (0.7, 0.8, 1.0)  # shader.rmiss:15
+LANE_PAD = 128  # kernel lanes are padded to a multiple of one CUDA block
+
+# out-of-slice options; each raises NotImplementedError naming its ROADMAP item
+_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 1)"
+_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 2)"
+_TODO_PAGED = "the dense-scene paged kernel (ROADMAP queue 1, item 5)"
+_TODO_PALLAS = "the fused-intersect 'pallas' kernel (ROADMAP queue 1, item 6)"
+_TODO_MATMUL = "the 'matmul' intersect variant (ROADMAP queue 1, item 6)"
+
+
+class DeviceScene(NamedTuple):
+    """Scene tables: numpy on the host (``prepare_scene``) or torch tensors
+    on a device (``device_scene_from_numpy``); same fields as the JAX
+    package's DeviceScene.  ``paged`` is always None in the port so far."""
+
+    centers: object  # [S,3] f32
+    centers_t: object  # [3,S] f32
+    radii: object  # [S] f32
+    kc: object  # [S] f32 = |c|^2 - r^2 (f64 precompute)
+    valid: object  # [S] bool
+    material: object  # [S] i32
+    texture: object  # [S] i32
+    color0: object  # [S,3] f32
+    color1: object  # [S,3] f32
+    attr: object  # [S] f32
+    table: object  # [S,24] packed sphere table (ops/intersect.sphere_table)
+    grid: object = None  # models.grid.GridTables when the scene fits the grid
+    paged: object = None  # dense-scene tables: not in the port yet
+
+
+class ViewportArrays(NamedTuple):
+    """Viewport constants (numpy f32), precomputed once on the host."""
+
+    horizontal: np.ndarray  # [3]
+    vertical: np.ndarray  # [3]
+    upper_left: np.ndarray  # [3]
+    cam_up: np.ndarray  # [3]
+    cam_right: np.ndarray  # [3]
+    look_from: np.ndarray  # [3]
+    aperture: np.ndarray  # [] f32
+    size: np.ndarray  # [2] f32 (width, height) — shader.rgen:42
+
+
+def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
+    """Host-side scene prep (numpy): SoA tables, the packed sphere table and
+    the grid tables.  ``grid_pitch``: cell size in world units, or "auto"
+    (pitch 2 when it keeps the 4-value layout, else pitch 1)."""
+    centers = np.asarray(scene.centers, np.float32)
+    radii = np.asarray(scene.radii, np.float32)
+    n = int(scene.n_spheres)
+    valid = np.arange(centers.shape[0]) < n
+    table = sphere_table(scene)
+    if grid_pitch == "auto":
+        grid = build_grid(scene, table, pitch=2.0)
+        if grid is None or grid.has_cy is not None:
+            grid = build_grid(scene, table, pitch=1.0)
+    else:
+        grid = build_grid(scene, table, pitch=float(grid_pitch))
+    return DeviceScene(
+        centers=centers,
+        centers_t=np.ascontiguousarray(centers.T),
+        radii=radii,
+        kc=sphere_constants(centers, radii),
+        valid=valid,
+        material=np.asarray(scene.material, np.int32),
+        texture=np.asarray(scene.texture, np.int32),
+        color0=np.asarray(scene.color0, np.float32),
+        color1=np.asarray(scene.color1, np.float32),
+        attr=np.asarray(scene.attr, np.float32),
+        table=table,
+        grid=grid,
+        paged=None,
+    )
+
+
+def _tensor(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device)
+
+
+def device_scene_from_numpy(ds, device) -> DeviceScene:
+    """Scene tables onto ``device`` as torch tensors — the port's weight
+    import.  ``ds`` is any DeviceScene with numpy-convertible fields: the
+    port's ``prepare_scene`` or the JAX package's (including its
+    GridTables).  Dense-scene (paged) tables are not carried over."""
+    g = ds.grid
+    grid = None if g is None else GridTables(
+        *[_tensor(getattr(g, f), device) for f in GridTables._fields])
+    fields = {f: _tensor(getattr(ds, f), device)
+              for f in DeviceScene._fields if f not in ("grid", "paged")}
+    return DeviceScene(**fields, grid=grid, paged=None)
+
+
+def tmax_never_binds(scene: SceneArrays, camera: Camera) -> bool:
+    """True when no intersection in this scene can reach the ray tMax
+    (shader.rgen:26): every hit point and ray origin lie inside the ball of
+    radius R = max(|center|+r, |camera|), so t <= 2R.  Lets the kernels drop
+    their upper range checks (skip_tmax) with zero semantic change."""
+    centers = np.asarray(scene.centers, np.float64)
+    radii = np.asarray(scene.radii, np.float64)
+    n = int(scene.n_spheres)
+    reach = float((np.linalg.norm(centers[:n], axis=1) + radii[:n]).max()) if n else 0.0
+    cam = float(np.linalg.norm(np.asarray(camera.look_from, np.float64)))
+    return 2.0 * max(reach, cam) < 0.99 * MAX_RAY_COLLISION_DISTANCE
+
+
+def viewport_arrays(camera: Camera, width: int, height: int) -> ViewportArrays:
+    """Precompute calculateViewport (shader.rgen:92-105) once on the host."""
+    vp = calculate_viewport(camera, np.float32(width) / np.float32(height))
+    return ViewportArrays(
+        horizontal=vp.horizontal,
+        vertical=vp.vertical,
+        upper_left=vp.upper_left_corner,
+        cam_up=vp.camera_up,
+        cam_right=vp.camera_right,
+        look_from=vp.look_from,
+        aperture=np.float32(vp.aperture),
+        size=np.array([width, height], np.float32),
+    )
+
+
+def viewport_scalars(vp: ViewportArrays) -> np.ndarray:
+    """Pack ViewportArrays into the kernels' (1, 24) f32 layout
+    (megakernel.V_*)."""
+    out = np.zeros((1, 24), np.float32)
+    out[0, 0:3] = vp.horizontal
+    out[0, 3:6] = vp.vertical
+    out[0, 6:9] = vp.upper_left
+    out[0, 9:12] = vp.cam_up
+    out[0, 12:15] = vp.cam_right
+    out[0, 15:18] = vp.look_from
+    out[0, 18] = vp.aperture
+    out[0, 19:21] = vp.size
+    return out
+
+
+def _normalize3(v):
+    """GLSL normalize with explicit x,y,z sum order (bit-parity with oracle)."""
+    n2 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
+    return v / fp.sqrt(n2)[..., None]
+
+
+def _camera_rays(seed, fx, fy, vpt):
+    """Vectorized getCameraRay (shader.rgen:107-115) incl. the uv jitter
+    draws of shader.rgen:57: exactly 4 LCG draws per sample (jitter-x,
+    jitter-y, aperture-r1, aperture-r2).  ``vpt``: dict of viewport tensors."""
+    seed, jx = rngops.random_float(seed)
+    seed, jy = rngops.random_float(seed)
+    u = (fx + jx) / vpt["size"][0]
+    v = (fy + jy) / vpt["size"][1]
+    seed, r1 = rngops.random_in_interval(seed, -1.0, 1.0)
+    seed, r2 = rngops.random_in_interval(seed, -1.0, 1.0)
+    inv_l = 1.0 / fp.sqrt(r1 * r1 + r2 * r2)
+    ap = vpt["aperture"] * 0.5
+    rx = ap * (r1 * inv_l)
+    ry = ap * (r2 * inv_l)
+    offset3 = vpt["cam_right"][None, :] * rx[:, None] + vpt["cam_up"][None, :] * ry[:, None]
+    frm = vpt["look_from"][None, :] + offset3
+    to = (vpt["upper_left"][None, :] + vpt["horizontal"][None, :] * u[:, None]
+          - vpt["vertical"][None, :] * v[:, None])
+    d = _normalize3(to - frm)
+    return seed, frm, d
+
+
+def _viewport_tensors(vp: ViewportArrays, device) -> dict:
+    return {k: torch.from_numpy(np.array(getattr(vp, k), np.float32)).to(device)
+            for k in ViewportArrays._fields}
+
+
+def _pixel_init(pix, number, *, width, y0, seed_y0, offset_x):
+    """Per-pixel uv coords + fresh TEA seed (shader.rgen:40,45)."""
+    px = pix % width
+    py_local = pix // width
+    fx = (offset_x + px).to(torch.float32)
+    fy = (y0 + py_local).to(torch.float32)
+    seed0 = rngops.tea_hash(rngops.tea_hash(px, seed_y0 + py_local),
+                            torch.full_like(px, number & rngops.MASK))
+    return fx, fy, seed0
+
+
+def _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign):
+    if n_calls is not None or spp_last is not None:
+        raise NotImplementedError(f"n_calls/spp_last: {_TODO_MERGE}")
+    if passign is not None:
+        raise NotImplementedError(f"passign: {_TODO_BALANCE}")
+    if ablate:
+        raise NotImplementedError(
+            f"ablate={tuple(ablate)}: the Mosaic cost probes are not carried "
+            "over to the port (ROADMAP, 'What does not carry over')")
+    if grid_steps is not None:
+        raise NotImplementedError(
+            f"grid_steps={tuple(grid_steps)}: the grid-step probes are not "
+            "carried over to the port (ROADMAP, 'What does not carry over')")
+    todo = {"paged": _TODO_PAGED, "pallas": _TODO_PALLAS, "matmul": _TODO_MATMUL}
+    if backend in todo:
+        raise NotImplementedError(f"backend={backend!r}: {todo[backend]}")
+    if backend not in ("bruteforce", "mega", "grid"):
+        raise ValueError(f"unknown backend: {backend!r}")
+
+
+def render_band(
+    scene: DeviceScene,
+    vp: ViewportArrays,
+    *,
+    band_h: int,
+    width: int,
+    y0: int,
+    seed_y0: int,
+    offset_x: int,
+    spp: int,
+    number: int,
+    accum_init: Optional[torch.Tensor] = None,
+    max_depth: int = MAX_DEPTH,
+    backend: str = "bruteforce",
+    pixels_per_lane: int = 1,
+    skip_tmax: bool = False,
+    ablate: tuple = (),
+    grid_steps=None,
+    n_calls=None,
+    spp_last=None,
+    rr=None,
+    passign=None,
+) -> torch.Tensor:
+    """Render one row band; returns the accumulated color sum [band_h, W, 3]
+    (f32, on the scene's device).
+
+    shader.rgen main() semantics: per-pixel seed ``tea(tea(x, y), number)``,
+    ``spp`` sequential jittered samples, the iterative <= ``max_depth``
+    bounce loop.  ``pixels_per_lane`` (M): each lane renders M strided pixels
+    (pixel of lane k, slot m = m*n_lanes + k); the image is identical for
+    any M.  ``rr=(d0, d1, pmin)`` is fast mode's Russian roulette; None is
+    the exact reference stream."""
+    _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign)
+    if backend in ("mega", "grid"):
+        return _render_band_mega(
+            scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
+            offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
+            max_depth=max_depth, pixels_per_lane=pixels_per_lane,
+            skip_tmax=skip_tmax, backend=backend, rr=rr)
+    return _render_band_spec(
+        scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
+        offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
+        max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
+
+
+def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
+                      number, accum_init, max_depth, pixels_per_lane, rr):
+    """The generic wavefront loop (JAX ``render_band_core``, bruteforce
+    backend) in eager torch: the spec path the kernels are held against."""
+    dev = scene.centers.device
+    p_total = band_h * width
+    m_slots = max(1, min(pixels_per_lane, p_total))
+    n = -(-p_total // m_slots)  # lanes
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    vpt = _viewport_tensors(vp, dev)
+    sky = torch.tensor(_SKY, dtype=torch.float32, device=dev)
+    init = dict(width=width, y0=y0, seed_y0=seed_y0, offset_x=offset_x)
+    tmin = float(np.float32(T_MIN))
+    tmax = float(np.float32(MAX_RAY_COLLISION_DISTANCE))
+
+    fx, fy, seed0 = _pixel_init(lane, number, **init)  # slot 0: pixel = lane
+    seed, o, d = _camera_rays(seed0, fx, fy, vpt)
+
+    if accum_init is None:
+        acc = torch.zeros((n, m_slots, 3), dtype=torch.float32, device=dev)
+    else:
+        flat = accum_init.reshape(p_total, 3).to(torch.float32)
+        pad = n * m_slots - p_total
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, 3))], dim=0)
+        acc = flat.reshape(m_slots, n, 3).permute(1, 0, 2).contiguous()
+
+    m = torch.zeros(n, dtype=torch.int64, device=dev)
+    sidx = torch.ones(n, dtype=torch.int64, device=dev)
+    depth = torch.zeros(n, dtype=torch.int64, device=dev)
+    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.full((n,), spp > 0, dtype=torch.bool, device=dev)
+    slot_ids = torch.arange(m_slots, device=dev)[None, :]
+
+    while bool(alive.any()):
+        t, idx, hit = intersect_bruteforce(o, d, scene.centers, scene.radii,
+                                           scene.valid, tmin, tmax)
+        center = scene.centers[idx]
+        mat = scene.material[idx]
+        tex = scene.texture[idx]
+        c0 = scene.color0[idx]
+        c1 = scene.color1[idx]
+        attr = scene.attr[idx]
+
+        point = o + t[:, None] * d  # shader.rint:33
+        outward = _normalize3(point - center)  # shader.rchit:41-43
+        ddn = outward[:, 0] * d[:, 0] + outward[:, 1] * d[:, 1] + outward[:, 2] * d[:, 2]
+        front = ddn < 0.0
+        normal = torch.where(front[:, None], outward, -outward)
+
+        att = materials.texture_color(point, tex, c0, c1)
+        seed_h, sd, does_scatter = materials.scatter(seed, d, normal, front, mat, attr)
+
+        scatters = hit & does_scatter
+        deep = (depth + 1) >= max_depth
+        cont = alive & scatters & ~deep
+        nthr = thr * att
+        if rr is not None:
+            # Russian-roulette fast mode (same structure and f32 op order as
+            # the kernels); rr=None keeps the bit-parity chain
+            d0, d1, pmin = rr
+            dnext = depth + 1
+            p = torch.clamp(torch.clamp(torch.amax(nthr, dim=1),
+                                        min=float(np.float32(pmin))), max=1.0)
+            if d1:
+                p = torch.where(dnext >= d1, p * 0.5, p)
+            considered = cont & (dnext >= d0)
+            seed_pre = torch.where(hit, seed_h, seed)
+            seed_rr, u_rr = rngops.random_float(seed_pre)
+            killed = considered & (u_rr >= p)
+            cont = cont & ~killed
+            nthr = torch.where(considered[:, None], nthr / p[:, None], nthr)
+        term = alive & ~cont
+
+        # lightSourceColor: sky on miss; attenuation on absorb (rgen:82-86);
+        # 0 when the depth cap kills a still-scattering path (rgen:74,89)
+        light = torch.where(hit[:, None],
+                            torch.where(does_scatter[:, None], 0.0, att),
+                            sky[None, :])
+        contrib = torch.where(term[:, None], thr * light, 0.0)
+        oh = (slot_ids == m[:, None]).to(torch.float32)
+        acc = acc + oh[:, :, None] * contrib[:, None, :]
+
+        # seed: hits consumed material draws; misses consumed none
+        seed_a = torch.where(hit, seed_h, seed)
+        if rr is not None:
+            seed_a = torch.where(considered, seed_rr, seed_a)
+
+        # termination bookkeeping: next sample of same pixel, or next pixel
+        more = term & (sidx < spp)
+        pix_done = term & ~more
+        m2 = m + pix_done.to(torch.int64)
+        pix2 = m2 * n + lane
+        adv = pix_done & (m2 < m_slots) & (pix2 < p_total)
+        fx2, fy2, fresh = _pixel_init(pix2, number, **init)
+
+        regen = more | adv
+        seed_c = torch.where(adv, fresh, seed_a)
+        fx = torch.where(adv, fx2, fx)
+        fy = torch.where(adv, fy2, fy)
+        seed_r, o_r, d_r = _camera_rays(seed_c, fx, fy, vpt)
+
+        seed = torch.where(alive, torch.where(regen, seed_r, seed_a), seed)
+        m = m2
+        sidx = torch.where(adv, 1, sidx + more.to(torch.int64))
+        depth = torch.where(cont, depth + 1, torch.where(regen, 0, depth))
+        o = torch.where(cont[:, None], point, torch.where(regen[:, None], o_r, o))
+        d = torch.where(cont[:, None], _normalize3(sd),
+                        torch.where(regen[:, None], d_r, d))
+        thr = torch.where(cont[:, None], nthr, torch.where(regen[:, None], 1.0, thr))
+        alive = alive & (cont | regen)
+
+    acc = acc.permute(1, 0, 2).reshape(n * m_slots, 3)[:p_total]
+    return acc.reshape(band_h, width, 3)
+
+
+def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
+               width, y0, seed_y0, offset_x, spp, number, accum_init=None,
+               pixels_per_lane=1, lane_pad=LANE_PAD):
+    """Pack a band's initial wavefront state for the kernel steps.
+
+    Returns (fstate [f_rows(M), n_pad] f32, ustate [U_ROWS, n_pad] int32
+    holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
+    Slot 0 of lane k is pixel k.  Its first camera ray comes from the
+    kernels' own ``camera_rays_rows``, so every sample of the kernel path is
+    generated by one formula and the image is bit-identical for any M.  (The
+    JAX ``_render_band_mega`` uses the spec ``_camera_rays`` here; XLA rewrites both
+    normalizations to ``v * rsqrt(n2)`` so the difference never shows there,
+    but in IEEE arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))`` differ
+    in the last bit.)"""
+    from . import gridkernel, megakernel
+
+    mk = gridkernel if backend == "grid" else megakernel
+    dev = scene.table.device
+    p_total = band_h * width
+    m_slots = max(1, min(pixels_per_lane, p_total))
+    n = -(-p_total // m_slots)  # logical lanes
+    n_pad = -(-n // lane_pad) * lane_pad
+    rf = mk.f_rows(m_slots)
+
+    lane = torch.arange(n_pad, dtype=torch.int64, device=dev)
+    fx0, fy0, seed0 = _pixel_init(lane, number, width=width, y0=y0,
+                                  seed_y0=seed_y0, offset_x=offset_x)
+    vpr = torch.from_numpy(viewport_scalars(vp)).to(dev)
+    seed, o, d = megakernel.camera_rays_rows(seed0, fx0, fy0, vpr)
+
+    fstate = torch.zeros((rf, n_pad), dtype=torch.float32, device=dev)
+    fstate[mk.R_O : mk.R_O + 3] = torch.stack(o)
+    fstate[mk.R_D : mk.R_D + 3] = torch.stack(d)
+    fstate[mk.R_FX] = fx0
+    fstate[mk.R_FY] = fy0
+    fstate[mk.R_THR : mk.R_THR + 3] = 1.0
+    if accum_init is not None:
+        flat = accum_init.reshape(p_total, 3).to(torch.float32)
+        pad = n * m_slots - p_total
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, 3))], dim=0)
+        acc_rows = flat.reshape(m_slots, n, 3).permute(0, 2, 1).reshape(3 * m_slots, n)
+        fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n] = acc_rows
+
+    ustate = torch.zeros((mk.U_ROWS, n_pad), dtype=torch.int32, device=dev)
+    ustate[mk.U_SEED] = rngops.to_i32(seed)
+    ustate[mk.U_SIDX] = 1
+    ustate[mk.U_ALIVE] = ((lane < n) & (spp > 0)).to(torch.int32)
+
+    s = np.zeros((1, 8), np.int64)  # scalar slots: megakernel.S_*
+    s[0, megakernel.S_SPP] = spp
+    s[0, megakernel.S_NUMBER] = np.uint32(number).astype(np.int32)
+    s[0, megakernel.S_Y0] = y0
+    s[0, megakernel.S_SEEDY0] = seed_y0
+    s[0, megakernel.S_OFFX] = offset_x
+    s[0, megakernel.S_NCALLS] = 1
+    s[0, megakernel.S_SPPLAST] = spp
+    scal = torch.from_numpy(s.astype(np.int32)).to(dev)
+    geom = dict(m_slots=m_slots, n_lanes=n, p_total=p_total, width=width)
+    return fstate, ustate, scal, vpr, geom
+
+
+def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total):
+    """The accumulator rows of a finished state -> [band_h, width, 3]."""
+    from . import gridkernel, megakernel
+
+    mk = gridkernel if backend == "grid" else megakernel
+    return (fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n_lanes]
+            .reshape(m_slots, 3, n_lanes)
+            .permute(0, 2, 1)
+            .reshape(m_slots * n_lanes, 3)[:p_total]
+            .reshape(band_h, width, 3))
+
+
+def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
+                      number, accum_init, max_depth, pixels_per_lane,
+                      skip_tmax, backend, rr=None):
+    """Kernel loop: pack the [rows, lanes] state, launch the wavefront step
+    until no lane is alive (one host sync per launch), unpack the
+    accumulator.  backend="mega" brute-forces the sphere table
+    (ops/megakernel.py); backend="grid" runs the uniform-grid DDA
+    (ops/gridkernel.py, requires grid tables) with identical results."""
+    from . import gridkernel, megakernel
+
+    if backend == "grid" and scene.grid is None:
+        raise ValueError("grid backend requires a grid-able scene")
+    mk = gridkernel if backend == "grid" else megakernel
+    fstate, ustate, scal, vpr, geom = pack_state(
+        scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
+        seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
+        accum_init=accum_init, pixels_per_lane=pixels_per_lane)
+    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr)
+    if backend == "grid":
+        def step(f, u):
+            return gridkernel.grid_megakernel_step(
+                scal, vpr, scene.grid, f, u, **common)
+    else:
+        atab = scene.table[:, 8:24].T.contiguous()
+
+        def step(f, u):
+            return megakernel.megakernel_step(
+                scal, vpr, scene.table, atab, f, u, **common)
+
+    while bool((ustate[mk.U_ALIVE] != 0).any()):
+        fstate, ustate = step(fstate, ustate)
+    return unpack_accum(fstate, backend=backend, band_h=band_h, width=width,
+                        m_slots=geom["m_slots"], n_lanes=geom["n_lanes"],
+                        p_total=geom["p_total"])

@@ -65,3 +65,8 @@ if os.environ.get("RAYTRACE_TESTS_CACHE_WRITES", "1") == "1":
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 else:  # reads only: nothing ever reaches the crashy serialize path
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1e9)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one; run on the card)")

@@ -1,0 +1,142 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  This file
+imports no JAX (the GPU machine has none), so it runs there without the
+repository's conftest, which imports jax:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Each test packs a state, takes one launch of the kernel and one call of its
+plain version from it, and requires every state row to be bit-equal
+(NaN == NaN): the kernels and the plain versions run the same IEEE op
+sequence (nvcc --fmad=false, no fast math; CUDA's sinf on both sides).
+The cases cover what the 1080p smoke run does not: the 5-value slot layout,
+the textured-field ``ttab`` path, pitch 2's wider 4-value cells, fast mode,
+a carried accumulator and tables larger than one 512-row block.
+"""
+
+import pytest
+import torch
+
+from raytrace_tpu_torch.models.scene import (CHECKERED, generate_random_scene,
+                                             random_sphere_field, three_sphere_scene)
+from raytrace_tpu_torch.ops import gridkernel, megakernel, trace
+from raytrace_tpu_torch.runtime.renderer import reference_camera
+
+RR = (1, 16, 0.05)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda", 0)
+
+
+def _textured_field():
+    sc = random_sphere_field(60, seed=3, extent=8.0)
+    sc.texture[10:20] = CHECKERED
+    sc.color1[10:20] = (0.9, 0.1, 0.1)
+    return sc
+
+
+SCENES = {
+    "book": (generate_random_scene, 1.0),
+    "book_pitch2": (generate_random_scene, 2.0),
+    "tall_field": (lambda t: random_sphere_field(60, seed=3, extent=8.0, y_range=(0.2, 2.5)), 1.0),
+    "textured_field": (lambda t: _textured_field(), 1.0),
+}
+
+
+def _launch_pair(kern, plain, f, u):
+    out_k = kern(f, u)
+    out_p = plain(f, u)
+    torch.cuda.synchronize()
+    return out_k, out_p
+
+
+def _assert_same(out_k, out_p):
+    (fk, uk), (fp, up) = out_k, out_p
+    assert torch.equal(uk, up)
+    same = (fk == fp) | (torch.isnan(fk) & torch.isnan(fp))
+    assert bool(same.all()), f"{int((~same.all(dim=0)).sum())} lanes differ"
+
+
+def _state(ds, backend, *, w=128, h=72, m=2, spp=2, accum=None):
+    vp = trace.viewport_arrays(reference_camera(), w, h)
+    return trace.pack_state(ds, vp, backend=backend, band_h=h, width=w, y0=0,
+                            seed_y0=0, offset_x=0, spp=spp, number=3,
+                            accum_init=accum, pixels_per_lane=m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_grid_kernel_matches_plain(cuda, name, rr):
+    make, pitch = SCENES[name]
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(make(0.0), grid_pitch=pitch), cuda)
+    assert ds.grid is not None
+    f, u, scal, vpr, geom = _state(ds, "grid")
+    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr)
+    step_k = lambda f_, u_: gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f_, u_, **kw)
+    step_p = lambda f_, u_: gridkernel.grid_megakernel_step_plain(scal, vpr, ds.grid, f_, u_, **kw)
+    for _ in range(3):  # three launches along one render, compared each time
+        out_k, out_p = _launch_pair(step_k, step_p, f, u)
+        _assert_same(out_k, out_p)
+        f, u = out_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
+@pytest.mark.parametrize("name", ["book", "three_sphere", "field2000"])
+def test_megakernel_matches_plain(cuda, name, rr):
+    scene = {"book": lambda: generate_random_scene(0.0),
+             "three_sphere": three_sphere_scene,
+             # 2048-row table: more than one 512-row block
+             "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0)}[name]()
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(scene), cuda)
+    accum = torch.rand((72, 128, 3), device=cuda)
+    f, u, scal, vpr, geom = _state(ds, "mega", accum=accum)
+    atab = ds.table[:, 8:24].T.contiguous()
+    kw = dict(geom, max_depth=50, skip_tmax=False, rr=rr)
+    step_k = lambda f_, u_: megakernel.megakernel_step(scal, vpr, ds.table, atab, f_, u_, **kw)
+    step_p = lambda f_, u_: megakernel.megakernel_step_plain(scal, vpr, ds.table, atab, f_, u_, **kw)
+    for _ in range(3):
+        out_k, out_p = _launch_pair(step_k, step_p, f, u)
+        _assert_same(out_k, out_p)
+        f, u = out_k
+
+
+@pytest.mark.gpu
+def test_renders_match_plain_renders(cuda):
+    """A whole band through ``render_band``: kernel image == plain-version
+    image (the same host loop runs the CPU plain path)."""
+    ds_np = trace.prepare_scene(generate_random_scene(0.0))
+    vp = trace.viewport_arrays(reference_camera(), 64, 36)
+    kw = dict(band_h=36, width=64, y0=0, seed_y0=0, offset_x=0, spp=2,
+              number=0, max_depth=12, pixels_per_lane=3, skip_tmax=True)
+    for backend in ("grid", "mega"):
+        on_gpu = trace.render_band(trace.device_scene_from_numpy(ds_np, cuda), vp,
+                                   backend=backend, **kw).cpu()
+        on_cpu = trace.render_band(trace.device_scene_from_numpy(ds_np, "cpu"), vp,
+                                   backend=backend, **kw)
+        diff = (on_gpu != on_cpu).any(dim=2)
+        # CUDA's sinf and torch's CPU sin may differ by an ulp, which can
+        # flip a checker sign at a zero crossing (the known chaos class)
+        assert int(diff.sum()) <= 3, f"{backend}: {int(diff.sum())} px differ"
+
+
+@pytest.mark.gpu
+def test_wrapper_counts_and_checks(cuda):
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(generate_random_scene(0.0)), cuda)
+    f, u, scal, vpr, geom = _state(ds, "grid", w=32, h=18, m=1)
+    kw = dict(geom, max_depth=8, skip_tmax=True)
+    before = gridkernel.grid_megakernel_step.launches
+    plain_before = gridkernel.grid_megakernel_step_plain.launches
+    gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, **kw)
+    assert gridkernel.grid_megakernel_step.launches == before + 1
+    assert gridkernel.grid_megakernel_step_plain.launches == plain_before
+    with pytest.raises(TypeError):
+        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f.double(), u, **kw)
+    with pytest.raises(ValueError):
+        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f[:, ::2], u[:, ::2], **kw)

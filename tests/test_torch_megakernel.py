@@ -1,0 +1,152 @@
+"""Port parity: the brute-force wavefront step (ops/megakernel.py).
+
+On the CPU the step wrapper runs the plain torch version.  It is held
+against the JAX ``megakernel_step`` in Pallas interpret mode from the same
+packed state, and the port's ``mega`` render against the oracle golden and
+the port's spec path.  The CUDA kernel itself is compared with the plain
+version on the card (tests/test_torch_cuda.py and chip_smoke.py).
+
+Tolerance of the step comparison, measured: XLA:CPU contracts ``a*b + c``
+into FMAs and rewrites ``x / sqrt(y)`` and ``1 / sqrt(y)`` as ``rsqrt``
+(torch runs each op IEEE-rounded), so the geometry rows (o, d) agree only to
+float noise, and the ground sphere's cancellation-prone quadratic turns that
+noise into a few different paths.  What must agree bit for bit is the
+discrete state — seed, slot, sample index, depth, alive, pixel coords and
+throughput — on at least 97% of lanes (measured 98.7% after one 10-iteration
+launch at depth 12; 99.9% after one iteration).  On those lanes the
+accumulators are compared bit for bit and the geometry rows within 1e-3, each
+on a stated share of lanes (ROADMAP queue 3 logs the cause).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from raytrace_tpu.ops import megakernel as jmega
+from raytrace_tpu_torch.models.scene import generate_random_scene, three_sphere_scene
+from raytrace_tpu_torch.ops import megakernel, trace
+from raytrace_tpu_torch.runtime.renderer import reference_camera
+
+torch.set_num_threads(1)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "data",
+                      "golden_fullscene_24x14_2spp_d12.npy")
+DISCRETE_F_ROWS = [megakernel.R_FX, megakernel.R_FY, megakernel.R_THR,
+                   megakernel.R_THR + 1, megakernel.R_THR + 2]
+
+
+@pytest.fixture(scope="module")
+def book():
+    return trace.prepare_scene(generate_random_scene(0.0))
+
+
+def _packed(ds_np, w, h, m, lane_pad):
+    ds = trace.device_scene_from_numpy(ds_np, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), w, h)
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, vp, backend="mega", band_h=h, width=w, y0=0, seed_y0=0,
+        offset_x=0, spp=2, number=0, pixels_per_lane=m, lane_pad=lane_pad)
+    kw = dict(geom, max_depth=12, skip_tmax=True)
+    return ds, f, u, scal, vpr, kw
+
+
+def _render(ds_np, backend, w, h, *, spp, depth, m):
+    ds = trace.device_scene_from_numpy(ds_np, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), w, h)
+    return trace.render_band(
+        ds, vp, band_h=h, width=w, y0=0, seed_y0=0, offset_x=0, spp=spp,
+        number=0, max_depth=depth, backend=backend, pixels_per_lane=m,
+        skip_tmax=True).numpy()
+
+
+def _steps(book, k_steps):
+    """(port state, JAX state, n_lanes) after one step of ``k_steps``
+    iterations from the same packed state: one JAX TILE (1024 lanes), M=3."""
+    ds, f, u, scal, vpr, kw = _packed(book, 64, 48, 3, jmega.TILE)
+    assert f.shape[1] == jmega.TILE
+    kw = dict(kw, k_steps=k_steps)
+    fj, uj = jmega.megakernel_step(
+        scal.numpy(), vpr.numpy(), book.table, book.table[:, 8:24].T.copy(),
+        f.numpy(), u.numpy().view(np.uint32), interpret=True, **kw)
+    before = megakernel.megakernel_step_plain.launches
+    fp, up = megakernel.megakernel_step(
+        scal, vpr, ds.table, ds.table[:, 8:24].T.contiguous(), f, u, **kw)
+    assert megakernel.megakernel_step_plain.launches == before + 1
+    fj, uj = np.asarray(fj), np.asarray(uj).view(np.int32)
+    assert fp.shape == fj.shape and up.shape == uj.shape
+    n = kw["n_lanes"]
+    return fp.numpy()[:, :n], up.numpy()[:, :n], fj[:, :n], uj[:, :n]
+
+
+def _discrete_same(fp, up, fj, uj):
+    return (up == uj).all(axis=0) & (fp[DISCRETE_F_ROWS] == fj[DISCRETE_F_ROWS]).all(axis=0)
+
+
+def _close_share(a, b, tol):
+    return float(np.isclose(a, b, rtol=tol, atol=tol, equal_nan=True).all(axis=0).mean())
+
+
+def test_step_matches_jax_interpret(book):
+    """Book scene, one launch (K_STEPS iterations) each."""
+    fp, up, fj, uj = _steps(book, megakernel.K_STEPS)
+    same = _discrete_same(fp, up, fj, uj)
+    assert same.mean() >= 0.97, f"discrete state equal on {same.mean():.2%} of lanes"
+    # the lanes still alive after the launch are the same lanes
+    assert (up[megakernel.U_ALIVE] == uj[megakernel.U_ALIVE]).mean() >= 0.99
+    # on those lanes: the accumulators bit for bit (measured 99.2%; the rest
+    # finished a sample on a path that had split and rejoined), the geometry
+    # rows to XLA's float noise (measured 98.2% / 97.6% within 1e-3)
+    acc = slice(megakernel.R_ACC, megakernel.R_ACC + 9)
+    assert (fp[acc, same] == fj[acc, same]).all(axis=0).mean() >= 0.99
+    for rows in (slice(0, 3), slice(3, 6)):  # o, d
+        assert _close_share(fp[rows, same], fj[rows, same], 1e-3) >= 0.95
+
+
+def test_first_iteration_matches_jax_interpret(book):
+    """One iteration, before XLA's float noise compounds: the discrete state
+    on >= 99% of lanes (measured 99.9%), and on those lanes every row but
+    the geometry bit for bit; o and d within 1e-4 on >= 88% and within 1e-3
+    on >= 97% of them (measured 90.1% and 98.5%: the ground sphere's
+    cancellation turns FMA-level noise into grazing-hit t noise)."""
+    fp, up, fj, uj = _steps(book, 1)
+    same = _discrete_same(fp, up, fj, uj)
+    assert same.mean() >= 0.99, f"discrete state equal on {same.mean():.2%} of lanes"
+    assert np.array_equal(fp[6:, same], fj[6:, same])
+    assert _close_share(fp[:6, same], fj[:6, same], 1e-4) >= 0.88
+    assert _close_share(fp[:6, same], fj[:6, same], 1e-3) >= 0.97
+
+
+def test_mega_render_matches_golden(book):
+    out = _render(book, "mega", 24, 14, spp=2, depth=12, m=3)
+    bad = int((np.abs(out - np.load(GOLDEN)).max(axis=2) > 1e-4).sum())
+    assert bad <= 3, f"{bad} pixels off"
+
+
+def test_mega_equals_spec_path_three_sphere():
+    """The JAX package's rule (tests/test_trace_golden.py): mega ==
+    bruteforce bit for bit, including pixels-per-lane invariance."""
+    ds = trace.prepare_scene(three_sphere_scene())
+    bf = _render(ds, "bruteforce", 32, 18, spp=4, depth=8, m=1)
+    assert np.array_equal(_render(ds, "mega", 32, 18, spp=4, depth=8, m=1), bf)
+    assert np.array_equal(_render(ds, "mega", 32, 18, spp=4, depth=8, m=4), bf)
+
+
+def test_mega_near_spec_path_book(book):
+    """On the book scene the kernel's expanded quadratic (f64 kc, 1/a) and
+    the spec path's oc-form differ in the last bit, which flips only
+    fp-chaotic pixels: the golden rule between the two."""
+    bf = _render(book, "bruteforce", 24, 14, spp=2, depth=12, m=1)
+    mg = _render(book, "mega", 24, 14, spp=2, depth=12, m=3)
+    assert int((np.abs(mg - bf).max(axis=2) > 1e-4).sum()) <= 3
+
+
+def test_wrapper_refuses_other_devices(book):
+    _, f, u, scal, vpr, kw = _packed(book, 8, 4, 1, 128)
+    ds = trace.device_scene_from_numpy(book, "cpu")
+    with pytest.raises(ValueError):
+        megakernel.megakernel_step(
+            scal, vpr, ds.table, ds.table[:, 8:24].T.contiguous(),
+            f.to("meta"), u.to("meta"), **kw)
+

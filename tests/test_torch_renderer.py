@@ -1,0 +1,130 @@
+"""Port: renderer and public API (runtime/renderer.py, api.py).
+
+``raytrace_tpu_torch.ray_trace`` must reproduce the oracle golden through the
+public entry point (u8 within one level on all but 3 pixels, the chaos
+budget of tests/test_golden_fullscene.py), keep chunking and progressive
+calls exact, refuse every option the port does not run yet by name, and
+never import jax.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import raytrace_tpu_torch
+from raytrace_tpu.ops.image import accum_to_u8 as j_accum_to_u8
+from raytrace_tpu_torch import RenderConfig
+from raytrace_tpu_torch.models.scene import three_sphere_scene
+from raytrace_tpu_torch.ops import gridkernel, megakernel, trace
+from raytrace_tpu_torch.ops.image import accum_to_u8
+from raytrace_tpu_torch.runtime.renderer import Renderer, reference_camera
+from raytrace_tpu_torch.utils.png import encode_png
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "data", "golden_fullscene_24x14_2spp_d12.npy")
+
+
+def test_ray_trace_matches_golden_and_writes_png(tmp_path, capsys):
+    out = tmp_path / "r.png"
+    before = gridkernel.grid_megakernel_step_plain.launches
+    img = raytrace_tpu_torch.ray_trace(samples=2, width=24, height=14, max_depth=12,
+                                       store_render_result=True, out_path=str(out))
+    assert gridkernel.grid_megakernel_step_plain.launches > before  # auto -> grid
+    assert "duration_per_frame:" in capsys.readouterr().out
+    ref = np.asarray(j_accum_to_u8(np.load(GOLDEN), 2))
+    assert img.shape == (14, 24, 3) and img.dtype == np.uint8
+    off = int((np.abs(img.astype(int) - ref.astype(int)).max(axis=2) > 1).sum())
+    assert off <= 3, f"{off} pixels off by more than one level"
+    assert out.read_bytes() == encode_png(img)
+
+
+def test_accum_to_u8_matches_jax():
+    acc = np.random.default_rng(0).uniform(0, 3, (7, 5, 3)).astype(np.float32)
+    ref = np.asarray(j_accum_to_u8(acc, 2))
+    assert np.array_equal(accum_to_u8(acc, 2), ref)
+    assert np.array_equal(accum_to_u8(torch.from_numpy(acc), 2).numpy(), ref)
+
+
+@pytest.mark.parametrize("backend", ["grid", "bruteforce"])
+def test_chunk_rows_invariant(backend):
+    cfg = RenderConfig(samples=1, width=32, height=18, max_depth=6, backend=backend)
+    whole = Renderer(cfg).render_call(1)
+    r = Renderer(cfg)
+    r.chunk_rows = 5  # bands of 5, 5, 5, 3 rows
+    assert torch.equal(r.render_call(1), whole)
+
+
+def test_progressive_samples_per_call():
+    cfg = RenderConfig(samples=3, width=24, height=14, max_depth=6, samples_per_call=2)
+    r = Renderer(cfg)
+    acc, total = r.render()
+    assert total == 3
+    one = r.render_call(2, number=0)
+    assert torch.equal(acc, r.render_call(1, number=1, accum=one))
+    seen = []
+    r.render(on_chunk=lambda a, done: seen.append(done))
+    assert seen == [2, 3]
+
+
+def test_float64_accumulation():
+    cfg = RenderConfig(samples=2, width=16, height=9, max_depth=6, samples_per_call=1)
+    acc32, _ = Renderer(cfg).render()
+    acc64, _ = Renderer(dataclasses.replace(cfg, accum_dtype="float64")).render()
+    assert acc64.dtype == torch.float64
+    assert torch.allclose(acc64, acc32.double(), rtol=1e-6, atol=1e-6)
+
+
+def test_mega_backend_and_three_sphere_scene_resolve_to_mega():
+    sc = three_sphere_scene()  # no small-sphere field: no grid tables
+    r = Renderer(RenderConfig(samples=1, width=16, height=9, max_depth=4), scene=sc)
+    assert r.backend == "mega"
+    before = megakernel.megakernel_step_plain.launches
+    r.render_call(1)
+    assert megakernel.megakernel_step_plain.launches > before
+
+
+@pytest.mark.parametrize("kw", [
+    dict(gpu_count=2),
+    dict(balance_spp=8),
+    dict(backend="paged"),
+    dict(backend="pallas"),
+    dict(backend="matmul"),
+])
+def test_out_of_slice_ray_trace_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        raytrace_tpu_torch.ray_trace(samples=1, width=8, height=4, max_depth=2, **kw)
+
+
+def test_out_of_slice_config_and_band_options_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Renderer(RenderConfig(samples=1, width=8, height=4, calls_per_exec=2))
+    ds = trace.device_scene_from_numpy(
+        trace.prepare_scene(raytrace_tpu_torch.generate_random_scene(0.0)), "cpu")
+    vp = trace.viewport_arrays(reference_camera(), 8, 4)
+    base = dict(band_h=4, width=8, y0=0, seed_y0=0, offset_x=0, spp=1, number=0,
+                max_depth=2, backend="grid")
+    for extra in (dict(ablate=("fetch2",)), dict(grid_steps=(2, 40, False, 1)),
+                  dict(grid_steps=(2, 40)),
+                  dict(n_calls=2), dict(spp_last=1),
+                  dict(passign=np.zeros((1, 128), np.int32))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trace.render_band(ds, vp, **base, **extra)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, raytrace_tpu_torch; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

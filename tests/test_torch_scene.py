@@ -1,0 +1,107 @@
+"""Port parity: host-side scene, camera, sphere table and grid tables.
+
+The port copies the JAX package's numpy modules (it must never import
+``raytrace_tpu``); these tests pin the copies byte for byte against the
+reference on the book scene at several animation times, the three-sphere
+scene and the 2000-sphere stretch field, and the grid tables at pitch 1 and 2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytrace_tpu.models import camera as jcamera
+from raytrace_tpu.models import grid as jgrid
+from raytrace_tpu.models import scene as jscene
+from raytrace_tpu.ops import pallas_intersect as jpi
+from raytrace_tpu.ops import trace as jtrace
+from raytrace_tpu_torch.models import camera as tcamera
+from raytrace_tpu_torch.models import grid as tgrid
+from raytrace_tpu_torch.models import scene as tscene
+from raytrace_tpu_torch.ops import intersect as tintersect
+from raytrace_tpu_torch.ops import trace as ttrace
+
+torch.set_num_threads(1)
+
+SCENES = {
+    "book_t0": lambda m: m.generate_random_scene(0.0),
+    "book_t0.9": lambda m: m.generate_random_scene(0.9),
+    "book_t2.7": lambda m: m.generate_random_scene(2.7),
+    "three_sphere": lambda m: m.three_sphere_scene(),
+    "field2000": lambda m: m.random_sphere_field(2000, seed=1, extent=7.0),
+    "tall60": lambda m: m.random_sphere_field(60, seed=3, extent=8.0, y_range=(0.2, 2.5)),
+}
+
+
+def _byte_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype, a.shape, b.shape)
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_scene_arrays_byte_equal(name):
+    ref = SCENES[name](jscene)
+    port = SCENES[name](tscene)
+    assert tscene.SceneArrays._fields == jscene.SceneArrays._fields
+    for field in jscene.SceneArrays._fields:
+        _byte_equal(getattr(port, field), getattr(ref, field))
+
+
+@pytest.mark.parametrize("aspect", [24 / 14, 16 / 9, 1.0])
+@pytest.mark.parametrize("look_from", [(13.0, 11.0, -3.0), (-2.0, 5.0, 9.0)])
+def test_calculate_viewport_byte_equal(aspect, look_from):
+    ref = jcamera.calculate_viewport(jcamera.Camera(look_from=look_from), aspect)
+    port = tcamera.calculate_viewport(tcamera.Camera(look_from=look_from), aspect)
+    for field in ("horizontal", "vertical", "upper_left_corner", "camera_up",
+                  "camera_right", "look_from", "aperture"):
+        _byte_equal(getattr(port, field), getattr(ref, field))
+
+
+@pytest.mark.parametrize("name", ["book_t0", "three_sphere", "field2000"])
+def test_sphere_table_byte_equal(name):
+    _byte_equal(tintersect.sphere_table(SCENES[name](tscene)),
+                jpi.sphere_table(SCENES[name](jscene)))
+
+
+@pytest.mark.parametrize("name,pitch", [("book_t0", 1.0), ("book_t0", 2.0),
+                                        ("tall60", 1.0), ("field2000", 1.0)])
+def test_grid_tables_byte_equal(name, pitch):
+    sc = SCENES[name](jscene)
+    ref = jgrid.build_grid(sc, jpi.sphere_table(sc), pitch=pitch)
+    port = tgrid.build_grid(sc, tintersect.sphere_table(sc), pitch=pitch)
+    # the dense 2000-sphere field crowds its cells past the slot cap: no grid
+    assert (ref is None) == (port is None) == (name == "field2000")
+    if ref is None:
+        return
+    assert tgrid.GridTables._fields == jgrid.GridTables._fields
+    for field in jgrid.GridTables._fields:
+        a, b = getattr(port, field), getattr(ref, field)
+        assert (a is None) == (b is None), field
+        if a is not None:
+            _byte_equal(a, b)
+
+
+def test_tall_field_uses_five_value_layout():
+    """Varied sphere heights exercise the general 5-value slot layout."""
+    sc = SCENES["tall60"](tscene)
+    g = tgrid.build_grid(sc, tintersect.sphere_table(sc))
+    assert g.has_cy is not None
+
+
+def test_device_scene_from_jax_scene_matches_port():
+    """The port's weight import: the JAX DeviceScene (numpy fields incl. its
+    GridTables) becomes the same torch tensors as the port's own prep."""
+    sc = jscene.generate_random_scene(0.0)
+    from_jax = ttrace.device_scene_from_numpy(jtrace.prepare_scene(sc), "cpu")
+    own = ttrace.device_scene_from_numpy(ttrace.prepare_scene(sc), "cpu")
+    for field in ttrace.DeviceScene._fields:
+        if field in ("grid", "paged"):
+            continue
+        assert torch.equal(getattr(from_jax, field), getattr(own, field)), field
+    for field in tgrid.GridTables._fields:
+        a, b = getattr(from_jax.grid, field), getattr(own.grid, field)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b), field
+    assert from_jax.paged is None and own.paged is None
