@@ -7,25 +7,34 @@ and the repository's sources; it imports nothing of JAX.  Each phase prints
 one line and raises on failure, so any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both CUDA kernels from ``raytrace_tpu_torch/csrc`` with nvcc, and a
-   PTX check that no fast-math instruction (approximate sqrt/div, rsqrt, sin)
-   reached the kernels;
-3. kernel vs plain version: one book-scene state at the 1920x1080 lane
-   count, one launch of each kernel and one call of its plain torch version
-   on the card, exact and fast mode, every state row compared (bit-equal on
-   >= 99.9% of lanes), and both times in exact mode (CUDA events, median of
-   several calls);
-4. goldens: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
-   by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), and grid == mega
-   exactly at 128x72, depth 4;
+2. build: the four CUDA kernels from ``raytrace_tpu_torch/csrc`` (one nvcc
+   per source, started together), and a PTX check that no fast-math
+   instruction (approximate sqrt/div, rsqrt, sin) reached any of them;
+3. kernel vs plain version, on the card, at the main path's shapes, each
+   kernel's result compared with its plain torch version on the same inputs
+   (>= 99.9% of lanes or rays bit-equal), exact and fast mode for the steps,
+   with both times (CUDA events, median of several calls) and the least time
+   the card could take for the work (bytes over 3.35 TB/s or fp32 operations
+   over 67 TFLOP/s, whichever is larger, counted from this run's inputs):
+   the grid and brute-force steps on a book-scene state at the 1920x1080
+   lane count, the paged step on a 100k-sphere state at the 3840x2160 lane
+   count (re-bucketed like the driver), and the fused intersect kernel on
+   the 259,200 rays of the book-scene state;
+4. gates: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
+   by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), grid == mega and
+   paged == mega on the 100k-sphere field exactly at 128x72, depth 4, and
+   the ``pallas`` and ``matmul`` backends at 24x14 under the JAX package's
+   statistical rules;
 5. main path, with every launch count set to 0 just before it and read
-   just after it: ``raytrace_tpu_torch.ray_trace(samples=16, width=1920,
-   height=1080, store_render_result=True)`` on the book scene, exact and
-   fast mode, which resolves to the grid kernel; then
-   ``raytrace_tpu_torch.render_image`` of the three-sphere scene at the same
-   size, which has no grid tables and so resolves to the brute-force
-   megakernel, the renderer's backend for every scene the grid cannot hold.
-   Each kernel must have launched, and neither plain version.
+   just after it: ``ray_trace(samples=16, width=1920, height=1080,
+   store_render_result=True)`` on the book scene, exact and fast (grid
+   kernel); ``render_image`` of the three-sphere scene at the same size
+   (brute-force megakernel); ``render_image`` of ``random_sphere_field(100_000)``
+   at 3840x2160 x 8 spp, exact and fast (paged kernel; the share of the wall
+   spent re-bucketing lanes is printed); ``ray_trace(samples=2, width=1920,
+   height=1080, backend="pallas")`` (fused intersect kernel); and the
+   ``matmul`` backend on the three-sphere scene at 480x270, 1 spp, depth 8.
+   Each kernel must have launched, and no plain version.
 
 Before the last line it prints the kernels' JSON record (``launches`` are the
 main path's counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -44,6 +53,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "smoke")
 MAIN_SPP, MAIN_W, MAIN_H = 16, 1920, 1080
+DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
+# H100 SXM peaks (NVIDIA data sheet): device memory and fp32 outside the
+# tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# fp32 operations counted from csrc/wavefront.cuh (sqrt, divide, sin one
+# each): a ray-sphere quadratic; a live lane-iteration's ray terms; a
+# segment's end (shading, throughput, regeneration)
+OPS_QUADRATIC, OPS_LANE_ITER, OPS_SEGMENT = 22, 16, 150
 
 
 def phase(name, msg):
@@ -68,17 +85,29 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def compare_states(kern, plain):
-    """(lanes differing in any row, max |diff| over finite f32 entries)."""
+def bound(nbytes, ops):
+    """(least ms on the card, what bounds it) for moving ``nbytes`` once and
+    doing ``ops`` fp32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(kern, plain):
+    """(columns differing in any row, max |diff| over finite f32 entries)
+    of two tuples of [rows, columns] tensors."""
     import torch
 
-    fk, uk = kern
-    fp, up = plain
-    same_f = (fk == fp) | (torch.isnan(fk) & torch.isnan(fp))
-    lane_ok = same_f.all(dim=0) & (uk == up).all(dim=0)
-    fin = torch.isfinite(fk) & torch.isfinite(fp)
-    diff = torch.where(fin, (fk - fp).abs(), torch.zeros_like(fk))
-    return int((~lane_ok).sum()), float(diff.max())
+    bad = None
+    err = 0.0
+    for k, p in zip(kern, plain):
+        same = (k == p) | (torch.isnan(k) & torch.isnan(p)) if k.is_floating_point() else k == p
+        col_bad = ~same.reshape(same.shape[0], -1).all(dim=0) if same.dim() > 1 else ~same
+        bad = col_bad if bad is None else bad | col_bad
+        if k.is_floating_point():
+            fin = torch.isfinite(k) & torch.isfinite(p)
+            err = max(err, float(torch.where(fin, (k - p).abs(), torch.zeros_like(k)).max()))
+    return int(bad.sum()), err
 
 
 def main() -> int:
@@ -92,9 +121,11 @@ def main() -> int:
 
     import raytrace_tpu_torch
     from raytrace_tpu_torch import RenderConfig, _build
-    from raytrace_tpu_torch.models.scene import generate_random_scene, three_sphere_scene
-    from raytrace_tpu_torch.ops import gridkernel, megakernel
-    from raytrace_tpu_torch.ops import trace
+    from raytrace_tpu_torch.models.scene import (generate_random_scene,
+                                                 random_sphere_field,
+                                                 three_sphere_scene)
+    from raytrace_tpu_torch.ops import (gridkernel, megakernel, pagedkernel,
+                                        pallas_intersect, trace)
     from raytrace_tpu_torch.runtime import renderer as rmod
 
     os.makedirs(OUT, exist_ok=True)
@@ -119,51 +150,66 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"fast-math instructions in the kernels' PTX: {bad}")
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    phase("build", f"{info['seconds']:.1f} s (0 = cached), {info['lib'].name}; "
-          f"PTX clean of {', '.join(_build.FORBIDDEN_PTX)}; ptxas: {regs}")
+    phase("build", f"{info['seconds']:.1f} s (0 = cached), {info['lib'].name} from "
+          f"{', '.join(_build.SOURCES)}; PTX clean of {', '.join(_build.FORBIDDEN_PTX)}; "
+          f"ptxas: {regs}")
     _build.library()
 
-    # ---- 3. kernels vs plain versions at the 1080p lane count --------------
+    # ---- 3. kernels vs plain versions at the main path's shapes ------------
     scene = generate_random_scene(0.0)
     ds = trace.device_scene_from_numpy(trace.prepare_scene(scene), dev)
     cam = rmod.reference_camera()
-    vp = trace.viewport_arrays(cam, MAIN_W, MAIN_H)
     skip = trace.tmax_never_binds(scene, cam)
-    m = int(np.clip(-(-(MAIN_W * MAIN_H) // rmod.lanes_target(dev)), 1, rmod.M_MAX))
     atab = ds.table[:, 8:24].T.contiguous()
+    dense_scene = random_sphere_field(DENSE_N)
+    dds = trace.device_scene_from_numpy(trace.prepare_scene(dense_scene), dev)
+    if dds.paged is None:
+        raise RuntimeError("the 100k-sphere field built no paged tables")
+    dense_skip = trace.tmax_never_binds(dense_scene, cam)
     records = {}
-    steps = {
-        "grid_megakernel_step": (
-            "grid", gridkernel.grid_megakernel_step,
-            gridkernel.grid_megakernel_step_plain,
-            lambda k, f, u, s, v, g: k(s, v, ds.grid, f, u, **g),
-            "raytrace_tpu_torch/csrc/gridkernel.cu",
-            "raytrace_tpu/ops/gridkernel.py:1123"),
-        "megakernel_step": (
-            "mega", megakernel.megakernel_step, megakernel.megakernel_step_plain,
-            lambda k, f, u, s, v, g: k(s, v, ds.table, atab, f, u, **g),
-            "raytrace_tpu_torch/csrc/megakernel.cu",
-            "raytrace_tpu/ops/megakernel.py:473"),
-    }
-    for name, (backend, kern, plain, call, src, repl) in steps.items():
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
+                   tables, src, repl, k_steps=None, advance=None):
+        """Pack a band state at (w, h)'s lane count, take it two launches
+        in, then one kernel launch and one plain call from there in exact and
+        fast mode; time both in exact mode; returns the exact-mode input."""
+        m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev)), 1, rmod.M_MAX))
+        vp = trace.viewport_arrays(cam, w, h)
         f0, u0, scal, vpr, geom = trace.pack_state(
-            ds, vp, backend=backend, band_h=MAIN_H, width=MAIN_W, y0=0,
-            seed_y0=0, offset_x=0, spp=MAIN_SPP, number=0, pixels_per_lane=m)
-        max_err = 0.0
+            dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
+            offset_x=0, spp=spp, number=0, pixels_per_lane=m)
+        advance = advance or (lambda f, u: (f, u))
+        max_err, exact_in = 0.0, None
         for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
-            g = dict(geom, max_depth=50, skip_tmax=skip, rr=rr)
-            # advance two launches so the compared state is mid-path
-            f1, u1 = call(kern, *call(kern, f0, u0, scal, vpr, g), scal, vpr, g)
-            out_k = call(kern, f1, u1, scal, vpr, g)
-            out_p = call(plain, f1, u1, scal, vpr, g)
+            g = dict(geom, max_depth=50, skip_tmax=skip_tmax, rr=rr)
+            if k_steps is not None:
+                g["k_steps"] = k_steps
+            f, u = f0, u0
+            for _ in range(2):
+                f, u = call(kern, scal, vpr, *advance(f, u), g)
+            f1, u1 = advance(f, u)
+            work = {}
+            out_k = call(kern, scal, vpr, f1, u1, g)
+            out_p = call(plain, scal, vpr, f1, u1, g, work=work)
             torch.cuda.synchronize()
-            n_bad, err = compare_states(out_k, out_p)
+            n_bad, err = compare(out_k, out_p)
             max_err = max(max_err, err)
             n = f1.shape[1]
-            if mode == "exact":  # the main path's default mode is timed
-                ms = cuda_ms(lambda: call(kern, f1, u1, scal, vpr, g), 5)
-                plain_ms = cuda_ms(lambda: call(plain, f1, u1, scal, vpr, g), 2)
-                timing = f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch"
+            if mode == "exact":
+                exact_in = (f1, u1)
+                ms = cuda_ms(lambda: call(kern, scal, vpr, f1, u1, g), 5)
+                plain_ms = cuda_ms(lambda: call(plain, scal, vpr, f1, u1, g), 2)
+                ops = (OPS_QUADRATIC * work["quadratics"]
+                       + OPS_LANE_ITER * work["lane_iters"]
+                       + OPS_SEGMENT * work.get("segments", 0))
+                moved = 2 * nbytes(f1, u1) + nbytes(scal, vpr, *tables)
+                bound_ms, bound_by = bound(moved, ops)
+                timing = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch, "
+                          f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {ops} ops; "
+                          f"work {work})")
             else:
                 timing = ""
             phase("kernel", f"{name} {mode}: {n} lanes (M={m}), {n_bad} lanes "
@@ -172,33 +218,107 @@ def main() -> int:
                 raise RuntimeError(f"{name} {mode}: {n_bad}/{n} lanes differ (> 0.1%)")
         records[name] = dict(name=name, route="cuda", source=src, replaces=repl,
                              launches=0, max_abs_err=max_err, ms=ms,
-                             plain_ms=plain_ms)
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+        return exact_in
 
-    # ---- 4. goldens --------------------------------------------------------
-    def render(backend, w, h, spp, depth, m_):
+    grid_tables = [getattr(ds.grid, f) for f in ds.grid._fields]
+    check_step("grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+               gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+               lambda k, s, v, f, u, g, **x: k(s, v, ds.grid, f, u, **g, **x),
+               grid_tables, "raytrace_tpu_torch/csrc/gridkernel.cu",
+               "raytrace_tpu/ops/gridkernel.py:1123")
+    f_mid, _ = check_step(
+        "megakernel_step", "mega", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+        megakernel.megakernel_step, megakernel.megakernel_step_plain,
+        lambda k, s, v, f, u, g, **x: k(s, v, ds.table, atab, f, u, **g, **x),
+        [ds.table, atab], "raytrace_tpu_torch/csrc/megakernel.cu",
+        "raytrace_tpu/ops/megakernel.py:473")
+    dense_lanes = -(-(DENSE_W * DENSE_H) // int(np.clip(
+        -(-(DENSE_W * DENSE_H) // rmod.lanes_target(dev)), 1, rmod.M_MAX)))
+    paged_tables = [dds.paged.geom, dds.paged.lids, dds.paged.attrs,
+                    dds.paged.gtab, dds.paged.gscal]
+    check_step("paged_megakernel_step", "paged", dds, DENSE_W, DENSE_H, DENSE_SPP,
+               dense_skip, pagedkernel.paged_megakernel_step,
+               pagedkernel.paged_megakernel_step_plain,
+               lambda k, s, v, f, u, g, **x: k(s, v, dds.paged, f, u, **g, **x),
+               paged_tables, "raytrace_tpu_torch/csrc/pagedkernel.cu",
+               "raytrace_tpu/ops/pagedkernel.py:794",
+               k_steps=pagedkernel.scaled_k(dense_lanes),
+               advance=lambda f, u: trace.rebucket(f, u, dds.paged.gscal))
+
+    # the fused intersect kernel on the rays of the book-scene state two
+    # launches into a 1080p render (259,200 camera and bounce rays)
+    o = f_mid[0:3].T.contiguous()
+    d = f_mid[3:6].T.contiguous()
+    out_k = pallas_intersect.intersect_shade_pallas(o, d, ds.table)
+    out_p = pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table)
+    torch.cuda.synchronize()
+    n_bad, err = compare([x.reshape(x.shape[0], -1).T for x in out_k],
+                         [x.reshape(x.shape[0], -1).T for x in out_p])
+    ms = cuda_ms(lambda: pallas_intersect.intersect_shade_pallas(o, d, ds.table), 10)
+    plain_ms = cuda_ms(lambda: pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table), 3)
+    n_rays, n_valid = o.shape[0], int((ds.table[:, 4] > 0).sum())
+    ops = OPS_QUADRATIC * n_rays * n_valid + OPS_LANE_ITER * n_rays
+    moved = nbytes(o, d, ds.table, *out_k[0:1], out_k[2])
+    bound_ms, bound_by = bound(moved, ops)
+    phase("kernel", f"intersect_shade_pallas: {n_rays} rays x {ds.table.shape[0]} rows, "
+          f"{n_bad} rays differ from the plain version, max |diff| {err}, "
+          f"{int(out_k[1].sum())} hits; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"per call, bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {ops} ops)")
+    if n_bad > n_rays // 1000:
+        raise RuntimeError(f"intersect_shade_pallas: {n_bad}/{n_rays} rays differ (> 0.1%)")
+    records["intersect_shade_pallas"] = dict(
+        name="intersect_shade_pallas", route="cuda",
+        source="raytrace_tpu_torch/csrc/intersect.cu",
+        replaces="raytrace_tpu/ops/pallas_intersect.py:104", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+
+    # ---- 4. gates ----------------------------------------------------------
+    def render(dsc, backend, w, h, spp, depth, m_, skip_tmax=skip):
         vp_ = trace.viewport_arrays(cam, w, h)
         out = trace.render_band(
-            ds, vp_, band_h=h, width=w, y0=0, seed_y0=0, offset_x=0, spp=spp,
+            dsc, vp_, band_h=h, width=w, y0=0, seed_y0=0, offset_x=0, spp=spp,
             number=0, max_depth=depth, backend=backend, pixels_per_lane=m_,
-            skip_tmax=skip)
+            skip_tmax=skip_tmax)
         return out.cpu().numpy()
 
     data = os.path.join(ROOT, "tests", "data")
     g24 = np.load(os.path.join(data, "golden_fullscene_24x14_2spp_d12.npy"))
     g128 = np.load(os.path.join(data, "golden_fullscene_128x72_2spp_d8.npy"))
     for backend in ("mega", "grid"):
-        off24 = int((np.abs(render(backend, 24, 14, 2, 12, 3) - g24).max(axis=2) > 1e-4).sum())
-        off128 = int((np.abs(render(backend, 128, 72, 2, 8, 1) - g128).max(axis=2) > 1e-3).sum())
+        off24 = int((np.abs(render(ds, backend, 24, 14, 2, 12, 3) - g24).max(axis=2) > 1e-4).sum())
+        off128 = int((np.abs(render(ds, backend, 128, 72, 2, 8, 1) - g128).max(axis=2) > 1e-3).sum())
         phase("golden", f"{backend}: 24x14 {off24}/336 px off by > 1e-4; "
               f"128x72 {off128}/9216 px off by > 1e-3")
         if off24 > 3 or off128 > 9216 // 100:
             raise RuntimeError(f"{backend} disagrees with the oracle goldens")
-    a = render("grid", 128, 72, 2, 4, 1)
-    b = render("mega", 128, 72, 2, 4, 1)
+    a = render(ds, "grid", 128, 72, 2, 4, 1)
+    b = render(ds, "mega", 128, 72, 2, 4, 1)
     n_diff = int((a != b).any(axis=2).sum())
     phase("golden", f"grid == mega at 128x72 depth 4: {n_diff} px differ")
     if n_diff:
         raise RuntimeError("grid and mega differ at depth 4")
+    a = render(dds, "paged", 128, 72, 2, 4, 1, dense_skip)
+    b = render(dds, "mega", 128, 72, 2, 4, 1, dense_skip)
+    n_diff = int((a != b).any(axis=2).sum())
+    phase("golden", f"paged == mega on the {DENSE_N}-sphere field at 128x72 depth 4: "
+          f"{n_diff} px differ (mean of the color sums {float(a.mean()):.4f})")
+    if n_diff:
+        raise RuntimeError("paged and mega differ at depth 4")
+    bf = render(ds, "bruteforce", 24, 14, 2, 12, 1)
+    pk = render(ds, "pallas", 24, 14, 2, 12, 4)
+    mm = render(ds, "matmul", 24, 14, 2, 12, 1)
+    pk_close = float((np.abs(bf - pk).max(axis=2) < 0.05).mean())
+    pk_mean = abs(bf.mean() - pk.mean()) / bf.mean()
+    mm_close = float((np.abs(mm - g24).max(axis=2) < 0.05).mean())
+    mm_mean = abs(mm.mean() - g24.mean()) / g24.mean()
+    phase("golden", f"pallas vs bruteforce at 24x14: {pk_close:.2%} px within 0.05 "
+          f"(rule > 85%), mean off {pk_mean:.4f} (rule < 0.05); matmul vs golden: "
+          f"{mm_close:.2%} within 0.05 (rule > 80%), mean off {mm_mean:.4f} (rule < 0.1)")
+    if not (pk_close > 0.85 and pk_mean < 0.05 and mm_close > 0.80 and mm_mean < 0.1):
+        raise RuntimeError("the pallas or matmul backend fails its statistical rule")
 
     # the exactness gate every bench run of the JAX package makes (bench.py:121):
     # grid == mega through the public entry point, on the 128x72 golden config
@@ -223,8 +343,23 @@ def main() -> int:
 
     # ---- 5. main path ------------------------------------------------------
     counters = (gridkernel.grid_megakernel_step, megakernel.megakernel_step,
+                pagedkernel.paged_megakernel_step,
+                pallas_intersect.intersect_shade_pallas,
                 gridkernel.grid_megakernel_step_plain,
-                megakernel.megakernel_step_plain)
+                megakernel.megakernel_step_plain,
+                pagedkernel.paged_megakernel_step_plain,
+                pallas_intersect.intersect_shade_pallas_plain)
+    plain_names = [c.__name__ for c in counters[4:]]
+    rebucket_events = []
+    orig_rebucket = trace.rebucket
+
+    def timed_rebucket(*args):  # CUDA events around each re-bucket
+        a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a_.record()
+        out = orig_rebucket(*args)
+        b_.record()
+        rebucket_events.append((a_, b_))
+        return out
 
     def launches():
         return {c.__name__: c.launches for c in counters}
@@ -240,13 +375,47 @@ def main() -> int:
         cfg = RenderConfig(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H)
         return raytrace_tpu_torch.render_image(cfg, scene=three_sphere_scene()), ""
 
-    runs = (("book scene exact", book, ("exact",), "grid"),
-            ("book scene fast", book, ("fast",), "grid"),
-            ("three-sphere scene exact", gridless, (), "mega"))
+    def dense(mode):
+        cfg = RenderConfig(samples=DENSE_SPP, width=DENSE_W, height=DENSE_H, mode=mode)
+        rebucket_events.clear()
+        trace.rebucket = timed_rebucket
+        try:
+            t0 = time.perf_counter()
+            img = raytrace_tpu_torch.render_image(cfg, scene=random_sphere_field(DENSE_N),
+                                                  device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            trace.rebucket = orig_rebucket
+        rb = sum(a_.elapsed_time(b_) for a_, b_ in rebucket_events) / 1e3
+        return img, (f"re-bucket {rb:.4f} s in {len(rebucket_events)} calls = "
+                     f"{rb / wall:.2%} of the wall")
+
+    def pallas():
+        img = raytrace_tpu_torch.ray_trace(samples=2, width=MAIN_W, height=MAIN_H,
+                                           backend="pallas", device="cuda")
+        return img, ""
+
+    def matmul():  # BASELINE config 1
+        cfg = RenderConfig(samples=1, width=480, height=270, max_depth=8, backend="matmul")
+        return raytrace_tpu_torch.render_image(cfg, scene=three_sphere_scene(),
+                                               device="cuda"), ""
+
+    runs = (("book scene exact", book, ("exact",), "grid", MAIN_SPP, MAIN_W, MAIN_H),
+            ("book scene fast", book, ("fast",), "grid", MAIN_SPP, MAIN_W, MAIN_H),
+            ("three-sphere scene exact", gridless, (), "mega", MAIN_SPP, MAIN_W, MAIN_H),
+            (f"{DENSE_N}-sphere field exact", dense, ("exact",), "paged",
+             DENSE_SPP, DENSE_W, DENSE_H),
+            (f"{DENSE_N}-sphere field fast", dense, ("fast",), "paged",
+             DENSE_SPP, DENSE_W, DENSE_H),
+            ("book scene pallas backend", pallas, (), "pallas", 2, MAIN_W, MAIN_H),
+            ("three-sphere scene matmul backend", matmul, (), "matmul", 1, 480, 270))
+    step_of = {"grid": "grid_megakernel_step", "mega": "megakernel_step",
+               "paged": "paged_megakernel_step", "pallas": "intersect_shade_pallas"}
     results = []
     for c in counters:
         c.launches = 0
-    for label, fn, args, want in runs:
+    for label, fn, args, want, spp, w, h in runs:
         before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -254,24 +423,24 @@ def main() -> int:
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         ran = {k: v - before[k] for k, v in launches().items()}
-        results.append((label, sec, img, ran, dict(seen), extra, want))
+        results.append((label, sec, img, ran, dict(seen), extra, want, spp, w, h))
     main_counts = launches()
     rmod.Renderer.render = orig_render
 
-    step_of = {"grid": "grid_megakernel_step", "mega": "megakernel_step"}
-    for label, sec, img, ran, got, extra, want in results:
+    for label, sec, img, ran, got, extra, want, spp, w, h in results:
         finite = bool(torch.isfinite(got["accum"]).all())
         mean = float(img.mean())
-        phase("main", f"{label} {MAIN_W}x{MAIN_H} {MAIN_SPP} spp: {sec:.3f} s, "
-              f"{MAIN_SPP * MAIN_W * MAIN_H / sec:.4g} samples*px/s, backend "
-              f"{got['backend']} (M={got['m']}), launches {ran}, finite {finite}, "
+        ran_nz = {k: v for k, v in ran.items() if v}
+        phase("main", f"{label} {w}x{h} {spp} spp: {sec:.3f} s, "
+              f"{spp * w * h / sec:.4g} samples*px/s, backend {got['backend']} "
+              f"(M={got['m']}), launches {ran_nz}, finite {finite}, "
               f"u8 mean {mean:.2f} {extra}")
-        if got["backend"] != want or ran[step_of[want]] == 0:
-            raise RuntimeError(f"{label}: the main path did not run the {want} kernel")
-        if not finite or img.shape != (MAIN_H, MAIN_W, 3) or not 20.0 < mean < 235.0:
+        if got["backend"] != want or (want in step_of and ran[step_of[want]] == 0):
+            raise RuntimeError(f"{label}: the main path did not run the {want} backend")
+        if not finite or img.shape != (h, w, 3) or not 20.0 < mean < 235.0:
             raise RuntimeError(f"{label}: implausible image")
     phase("main", f"launches over the main path {main_counts}")
-    if main_counts["grid_megakernel_step_plain"] or main_counts["megakernel_step_plain"]:
+    if any(main_counts[p] for p in plain_names):
         raise RuntimeError("a plain version ran on the main path")
     for name in records:
         if main_counts[name] == 0:

@@ -6,8 +6,14 @@ state machine; the Pallas kernels on the render path become hand-written CUDA
 kernels for ``sm_90a`` (``csrc/``, built with nvcc on first use by
 ``_build.py``), each with a plain torch version that the CPU runs:
 
-- ``ops/gridkernel.py``: the grid-DDA wavefront step (main path);
-- ``ops/megakernel.py``: the brute-force wavefront step (its anchor).
+- ``ops/gridkernel.py``: the grid-DDA wavefront step (the book scene);
+- ``ops/megakernel.py``: the brute-force wavefront step (its anchor);
+- ``ops/pagedkernel.py``: the paged-grid wavefront step (dense scenes);
+- ``ops/pallas_intersect.py``: the fused closest hit + attribute fetch of
+  the ``pallas`` spec backend.
+
+The entry points render on the GPU and raise without one unless given
+``device="cpu"``.
 
 This package imports torch and numpy only, never jax or ``raytrace_tpu``.
 Public API mirrors the reference C ABI (``ray_trace``).

@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels (nvcc -> one shared library -> ctypes).
 
 The sources in ``csrc/`` have a plain C interface and include no PyTorch
-headers, so one nvcc call builds them in seconds.  The library lands in
-``build/kernels/<hash>/`` at the repository root (gitignored), keyed by a
-hash of the sources and flags; the first call in a fresh checkout builds it,
-later calls load it.  Flags: ``sm_90a`` (Hopper), ``--fmad=false`` and no
-fast math, because the kernels must keep the JAX package's IEEE op sequence
-(see ``csrc/wavefront.cuh``).
+headers, so nvcc builds each in seconds; one nvcc process per source (and
+one per PTX file) is started at once, and the objects are then linked into
+one library.  The library lands in ``build/kernels/<hash>/`` at the
+repository root (gitignored), keyed by a hash of the sources and flags; the
+first call in a fresh checkout builds it, later calls load it.  Flags:
+``sm_90a`` (Hopper), ``--fmad=false`` and no fast math, because the kernels
+must keep the JAX package's IEEE op sequence (see ``csrc/wavefront.cuh``).
 
 Nothing here runs at import: ``library()`` builds on first use and raises if
 nvcc is missing or the build fails.  There is no fallback.
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("megakernel.cu", "gridkernel.cu")
+SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu")
 HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 13 + [_FLOAT, _INT, _VOIDP],
     # 12 pointers (ttab may be NULL), 18 ints, pmin, device, stream
     "rt_grid_megakernel_step": [_VOIDP] * 12 + [_INT] * 18 + [_FLOAT, _INT, _VOIDP],
+    # 11 pointers, 17 ints, pmin, device, stream
+    "rt_paged_megakernel_step": [_VOIDP] * 11 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
+    # o, d, table, t, attrs; n, s_rows, device; stream
+    "rt_intersect_shade": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
 }
 
 
@@ -66,12 +71,15 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_hash()
 
 
-def _run(cmd) -> str:
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    return proc.stdout + proc.stderr
+def _run_all(cmds) -> str:
+    """Run the nvcc commands at once; their joined output, or raise."""
+    procs = [subprocess.Popen(c, cwd=CSRC, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> dict:
@@ -89,14 +97,18 @@ def build() -> dict:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out) as tmp:
+        objs = [str(Path(tmp) / (Path(name).stem + ".o")) for name in SOURCES]
+        log = _run_all(
+            [[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", "-o", obj, name]
+             for name, obj in zip(SOURCES, objs)]
+            + [[nvcc, "-arch=compute_90a", *FLAGS, "-ptx", "-o",
+                str(Path(tmp) / dst.name), name] for name, dst in ptx.items()])
         tmp_lib = Path(tmp) / LIB_NAME
-        log = _run([nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
-                    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", str(tmp_lib), *SOURCES])
-        for name, dst in ptx.items():
-            tmp_ptx = Path(tmp) / dst.name
-            _run([nvcc, "-arch=compute_90a", *FLAGS, "-ptx", "-o", str(tmp_ptx), name])
-            os.replace(tmp_ptx, dst)
+        log += _run_all([[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}",
+                          "-shared", "-o", str(tmp_lib), *objs]])
+        for dst in ptx.values():
+            os.replace(Path(tmp) / dst.name, dst)
         # the library last: its presence marks a complete build
         (Path(tmp) / "build.log").write_text(log)
         os.replace(Path(tmp) / "build.log", log_path)

@@ -3,8 +3,10 @@
 Port of ``raytrace_tpu/api.py``: ``ray_trace`` takes the reference's five
 arguments (samples, storeRenderResult, width, height, gpu_count) in the same
 order with the same defaults, prints ``duration_per_frame`` like the
-reference frame loop, and writes a PNG when asked.  It renders on the first
-CUDA device when there is one, else on the CPU through the plain steps.
+reference frame loop, and writes a PNG when asked.  ``render_image`` renders
+any scene (``random_sphere_field(100_000)`` is the dense-scene path).  Both
+render on the GPU (``device="cuda"``) and raise without one; ``device="cpu"``
+runs the kernels' plain torch versions.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from .models.scene import SceneArrays
 
 
 def render_image(config: RenderConfig, scene: Optional[SceneArrays] = None,
-                 device=None) -> np.ndarray:
-    """Render one frame to a u8 RGB image using ``config``."""
+                 device="cuda") -> np.ndarray:
+    """Render one frame of ``scene`` (default: the book scene) to a u8 RGB
+    image using ``config``."""
     from .runtime.renderer import Renderer
 
     return Renderer(config, scene=scene, device=device).render_u8()
@@ -44,13 +47,15 @@ def ray_trace(
     pixels_per_lane: Optional[int] = None,
     mode: str = "exact",
     balance_spp: int = 0,
+    device="cuda",
 ) -> np.ndarray:
     """Drop-in analogue of the reference C ABI entry point.
 
     Renders the procedural final-book scene at (width, height) with
     ``samples`` spp, prints duration_per_frame, optionally stores a PNG, and
     returns the u8 image.  ``preview`` writes the running image after every
-    progressive call."""
+    progressive call.  ``device``: "cuda" (default; raises without a GPU) or
+    "cpu"."""
     config = RenderConfig(
         samples=samples,
         store=store_render_result,
@@ -80,7 +85,7 @@ def ray_trace(
             write_png(out_path, accum_to_u8(accum, done).cpu().numpy())
     else:
         on_chunk = None
-    accum, total = Renderer(config).render(samples, on_chunk=on_chunk)
+    accum, total = Renderer(config, device=device).render(samples, on_chunk=on_chunk)
     img = accum_to_u8(accum, total).cpu().numpy()
     dpf = time.perf_counter() - t0
     print(f"duration_per_frame: {dpf}")

@@ -61,7 +61,7 @@ class RenderConfig:
     max_depth: int = MAX_DEPTH
     samples_per_call: Optional[int] = None  # None = all in one call (reference Q3)
     calls_per_exec: int = 1  # in-kernel call merge (not in the port yet)
-    backend: str = "auto"  # auto|grid|mega|bruteforce in the port
+    backend: str = "auto"  # auto|grid|paged|mega|bruteforce|matmul|pallas
     mode: str = "exact"  # exact|fast.  "exact" reproduces the reference GLSL
     # sample stream bit-for-bit (the test/parity contract).  "fast" is the
     # production mode: Russian-roulette path termination (unbiased — the

@@ -67,21 +67,6 @@ struct GridParams {
   rt::RR rr;
 };
 
-// ray vs axis slab [lo, hi] from a precomputed reciprocal; degenerate d:
-// inside -> (-BIG, BIG), outside -> empty
-__device__ __forceinline__ void slab_inv(float o, float d, float inv, float lo,
-                                         float hi, float& t0, float& t1) {
-  const float ta = (lo - o) * inv;
-  const float tb = (hi - o) * inv;
-  t0 = rt::jmin(ta, tb);
-  t1 = rt::jmax(ta, tb);
-  if (d == 0.0f) {
-    const bool inside = o >= lo && o <= hi;
-    t0 = inside ? -rt::BIG : rt::BIG;
-    t1 = inside ? rt::BIG : -rt::BIG;
-  }
-}
-
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
 __global__ void __launch_bounds__(BLOCK) grid_megakernel_step_kernel(GridParams P) {
@@ -149,9 +134,9 @@ __global__ void __launch_bounds__(BLOCK) grid_megakernel_step_kernel(GridParams 
     const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
     if (need) {
       float t0x, t1x, t0y, t1y, t0z, t1z;
-      slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], t0x, t1x);
-      slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], t0y, t1y);
-      slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], t0z, t1z);
+      rt::slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], t0x, t1x);
+      rt::slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], t0y, t1y);
+      rt::slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], t0z, t1z);
       const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, rt::T_MIN));
       const float t_end_n = rt::jmin(rt::jmin(t1x, t1y), t1z);
       t_end = t_end_n;

@@ -1,7 +1,8 @@
-// Per-lane pieces of the wavefront state machine, shared by both kernels
-// (megakernel.cu, gridkernel.cu): the TEA + LCG random streams, the camera
-// ray, the ray-sphere quadratic, closest-hit shading with speculative draws,
-// and fast mode's Russian-roulette probability.
+// Per-lane pieces of the wavefront state machine, shared by the three
+// wavefront kernels (megakernel.cu, gridkernel.cu, pagedkernel.cu): the TEA +
+// LCG random streams, the camera ray, the ray-sphere quadratic, the slab
+// clip of the grid kernels, closest-hit shading with speculative draws, and
+// fast mode's Russian-roulette probability.
 //
 // Bit parity with the JAX package and the plain torch versions is the
 // contract, so every expression keeps the JAX operand order: explicit
@@ -135,6 +136,21 @@ __device__ __forceinline__ float quadratic(const RayTerms& q, float cx, float cy
   bool t1_ok = skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX);
   bool t2_ok = skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX);
   return t1_ok ? t1 : (t2_ok ? t2 : BIG);
+}
+
+// ray vs axis slab [lo, hi] from a precomputed reciprocal; degenerate d:
+// inside -> (-BIG, BIG), outside -> empty
+__device__ __forceinline__ void slab_inv(float o, float d, float inv, float lo,
+                                         float hi, float& t0, float& t1) {
+  const float ta = (lo - o) * inv;
+  const float tb = (hi - o) * inv;
+  t0 = jmin(ta, tb);
+  t1 = jmax(ta, tb);
+  if (d == 0.0f) {
+    const bool inside = o >= lo && o <= hi;
+    t0 = inside ? -BIG : BIG;
+    t1 = inside ? BIG : -BIG;
+  }
 }
 
 // ---- closest-hit shading (shader.rchit; ops/shading_rows.py) ---------------

@@ -55,7 +55,7 @@ from . import rng as rngops
 from .intersect import BIG
 from .megakernel import (S_NUMBER, S_OFFX, S_SEEDY0, S_SPP, S_Y0, SKY, TMAX,
                          TMIN, _check_state, _cuda_args, _rr_args,
-                         camera_rays_rows, rr_probability)
+                         camera_rays_rows, count_work, rr_probability)
 from .shading_rows import norm3, shade_rows
 
 K_STEPS = 40  # wavefront iterations per launch
@@ -179,10 +179,11 @@ grid_megakernel_step.launches = 0
 def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
                                n_lanes, p_total, width, max_depth,
                                k_steps=K_STEPS, j_steps=J_STEPS,
-                               skip_tmax=False, rr=None):
+                               skip_tmax=False, rr=None, work=None):
     """The plain torch version of ``grid_megakernel_step``: the JAX
     ``_iterate`` (n_calls = 1, no passign) vectorized over lanes, with the
-    same operand order as the CUDA kernel."""
+    same operand order as the CUDA kernel.  ``work``: optional dict that
+    receives the counts of ``megakernel.count_work``."""
     grid_megakernel_step_plain.launches += 1
     dev = fstate.device
     f = fstate.clone()
@@ -235,6 +236,9 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
 
         # ---- segment start: global spheres + grid clip + DDA init ---------
         need = alive & ~marching
+        if work is not None:
+            count_work(work, lane_iters=alive.sum(),
+                       quadratics=need.sum() * (gtab[:, 3] < 1e30).sum())
         t_b = torch.where(need, big, t_b)
         bkey = torch.where(need, TAG, bkey)
         for k in range(gtab.shape[0]):
@@ -284,6 +288,8 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
             vals = fetch(grid.ctab, cid.clamp(0, n_cells_pad - 1), w * n_slots, stride)
             for s in range(n_slots):
                 b0 = w * s
+                if work is not None:
+                    count_work(work, quadratics=(marching & (vals[b0 + w - 2] < 1e30)).sum())
                 s_cy = vals[b0 + 1] if five else cy_u
                 tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
                                 vals[b0], s_cy, vals[b0 + w - 3],
@@ -304,6 +310,8 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
 
         seg_done = alive & ~marching
         hit = t_b < big
+        if work is not None:
+            count_work(work, segments=seg_done.sum())
 
         # ---- winner resolution: bkey (sphere id) -> attrs -------------------
         is_direct = bkey >= TAG

@@ -1,14 +1,23 @@
-"""Ray-sphere intersection: the spec form and the packed sphere table.
+"""Ray-sphere intersection: the spec forms and the packed sphere table.
 
 Port of ``raytrace_tpu/ops/intersect.py`` (``BIG``, ``sphere_constants``,
-``intersect_bruteforce``) plus ``sphere_table`` and its column constants from
+``intersect_bruteforce``, ``intersect_matmul``, ``_select_roots``) plus
+``sphere_table`` and its column constants from
 ``raytrace_tpu/ops/pallas_intersect.py``: ``models/grid.build_grid`` reads
-the table's f64-precomputed ``kc`` column, and the megakernel brute-forces
-the table.
+the table's f64-precomputed ``kc`` column, the megakernel brute-forces the
+table, and the ``pallas`` backend's kernel (ops/pallas_intersect.py) fetches
+the winner's attribute columns from it.
 
 Math matches calculateIntersections (shader.rint:44-60): half-b quadratic,
 report t1 if in [tMin, tMax] else t2; closest hit is an argmin over spheres
-(lowest index wins ties).
+(lowest index wins ties).  Two algebraic forms:
+
+- ``intersect_bruteforce``: the direct ``oc = o - c`` form in the oracle's
+  op order (materializes [N, S, 3]);
+- ``intersect_matmul``: the expanded form, ``c . d`` and ``c . o`` as two
+  [N,3] @ [3,S] ``torch.matmul`` products and ``|c|^2 - r^2`` precomputed in
+  f64.  The products must run in full fp32 (the JAX code asks for
+  ``Precision.HIGHEST``): on a CUDA device it raises if TF32 is allowed.
 """
 
 from __future__ import annotations
@@ -54,14 +63,50 @@ def intersect_bruteforce(o, d, centers, radii, valid, tmin, tmax):
          + oc[:, :, 2] * d[:, None, 2])
     c = (oc[:, :, 0] * oc[:, :, 0] + oc[:, :, 1] * oc[:, :, 1]
          + oc[:, :, 2] * oc[:, :, 2] - (radii * radii)[None, :])
+    return _select_roots(a, b, c, valid, tmin, tmax, exact_div=True)
+
+
+def _dot3(u, v):
+    return (u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2])[:, None]
+
+
+def intersect_matmul(o, d, centers_t, radii_sq_c, valid, tmin, tmax):
+    """Expanded form. centers_t: [3,S] (transposed); radii_sq_c: [S] =
+    |c|^2 - r^2 (f64 precompute).  b = o.d - c.d; c_term = |o|^2 - 2 o.c +
+    (|c|^2 - r^2); a = d.d.  Returns (t [N], idx [N] int64, hit [N] bool)."""
+    if o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "intersect_matmul needs full fp32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 keeps ~10 "
+            "mantissa bits, which puts bounce origins inside the ground sphere)")
+    od = _dot3(o, d)  # [N,1]
+    oo = _dot3(o, o)
+    a = _dot3(d, d)
+    cd = torch.matmul(d, centers_t)  # [N,S]
+    co = torch.matmul(o, centers_t)
+    b = od - cd
+    c = oo - 2.0 * co + radii_sq_c[None, :]
+    return _select_roots(a, b, c, valid, tmin, tmax)
+
+
+def _select_roots(a, b, c, valid, tmin, tmax, exact_div=False):
+    """Root selection per shader.rint:32-39 + closest-hit argmin.
+
+    ``exact_div=True`` divides by ``a`` like the GLSL; otherwise one
+    reciprocal per ray is multiplied in."""
     disc = b * b - a * c
     ok = disc >= 0.0
     sq = fp.sqrt(torch.where(ok, disc, 0.0))
-    t1 = (-b - sq) / a
-    t2 = (-b + sq) / a
+    if exact_div:
+        t1 = (-b - sq) / a
+        t2 = (-b + sq) / a
+    else:
+        inv_a = 1.0 / a
+        t1 = (-b - sq) * inv_a
+        t2 = (-b + sq) * inv_a
     t1_ok = ok & (t1 >= tmin) & (t1 <= tmax)
     t2_ok = ok & (t2 >= tmin) & (t2 <= tmax)
-    big = torch.tensor(BIG, dtype=torch.float32, device=o.device)
+    big = torch.tensor(BIG, dtype=torch.float32, device=a.device)
     t = torch.where(t1_ok, t1, torch.where(t2_ok, t2, big))
     t = torch.where(valid[None, :], t, big)
     t_min = torch.amin(t, dim=1)

@@ -165,11 +165,22 @@ def megakernel_step(scal, vpr, table, atab, fstate, ustate, *, m_slots,
 megakernel_step.launches = 0
 
 
+def count_work(work, **counts):
+    """Add this iteration's counts to a plain version's ``work`` dict:
+    ``lane_iters`` (live lanes), ``quadratics`` (ray-sphere tests the data
+    needs: valid table rows, occupied cell slots, real globals) and
+    ``segments`` (ray segments that ended).  chip_smoke.py derives a step's
+    least time on the card from them."""
+    for k, v in counts.items():
+        work[k] = work.get(k, 0) + int(v)
+
+
 def megakernel_step_plain(scal, vpr, table, atab, fstate, ustate, *, m_slots,
                           n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
-                          skip_tmax=False, rr=None):
+                          skip_tmax=False, rr=None, work=None):
     """The plain torch version of ``megakernel_step``: the JAX ``_iterate``
-    vectorized over lanes, with the same operand order as the CUDA kernel."""
+    vectorized over lanes, with the same operand order as the CUDA kernel.
+    ``work``: optional dict that receives the counts of ``count_work``."""
     megakernel_step_plain.launches += 1
     dev = fstate.device
     f = fstate.clone()
@@ -197,6 +208,10 @@ def megakernel_step_plain(scal, vpr, table, atab, fstate, ustate, *, m_slots,
     for _ in range(k_steps):
         if not bool(alive.any()):
             break  # dead lanes are a fixed point of the iteration
+        if work is not None:
+            n_alive = alive.sum()
+            count_work(work, lane_iters=n_alive, segments=n_alive,
+                       quadratics=n_alive * (table[:, 4] > 0).sum())
         # ---- intersect: shader.rint:44-60 over all spheres ----------------
         a = dx * dx + dy * dy + dz * dz
         od = ox * dx + oy * dy + oz * dz

@@ -9,14 +9,22 @@ carried LCG stream reproduce the reference GLSL's draws exactly.
 
 Backends:
 
-- ``bruteforce``: the eager spec path (``render_band_core``'s generic loop),
-  in the oracle's fp op order.  Runs on any device; it is the parity anchor.
+- ``bruteforce`` / ``matmul`` / ``pallas``: the eager spec path
+  (``render_band_core``'s generic loop), differing only in the closest-hit
+  step (``_shade_inputs``): the oracle-order brute force, the expanded form
+  with two fp32 ``torch.matmul`` products, or the fused intersect +
+  attribute-fetch kernel (``ops/pallas_intersect.py``).  ``bruteforce`` runs
+  in the oracle's fp op order and is the parity anchor.
 - ``mega`` / ``grid``: the kernel loop ``_render_band_mega`` — state packed
   into row-major ``[rows, lanes]`` f32/int32 tensors, a host loop over the
   wavefront step (``ops/megakernel.py`` brute force, ``ops/gridkernel.py``
-  grid DDA) until no lane is alive, then the accumulator is unpacked.  The
-  step wrapper decides between the CUDA kernel and its plain torch version
-  by the state tensor's device.
+  grid DDA) until no lane is alive, then the accumulator is unpacked.
+- ``paged``: the same loop over the paged-grid step (``ops/pagedkernel.py``)
+  with the lanes re-bucketed by page before every launch
+  (``_render_band_paged``).
+
+Each kernel wrapper decides between its CUDA kernel and its plain torch
+version by the state tensor's device.
 
 Seed/uv conventions: ``y0`` is the band's global row (uv) and ``seed_y0`` the
 row origin for seeding; internal chunking passes ``seed_y0 = y0`` so chunked
@@ -33,27 +41,30 @@ import torch
 from ..config import MAX_DEPTH, MAX_RAY_COLLISION_DISTANCE, T_MIN
 from ..models.camera import Camera, calculate_viewport
 from ..models.grid import GridTables, build_grid
+from ..models.paged_grid import (P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ, P_INVS,
+                                 P_XHI, P_XLO, P_YHI, P_YLO, P_ZHI, P_ZLO,
+                                 PagedGridTables, build_paged_grid)
 from ..models.scene import SceneArrays
 from . import fp
 from . import materials
 from . import rng as rngops
-from .intersect import intersect_bruteforce, sphere_constants, sphere_table
+from .intersect import (intersect_bruteforce, intersect_matmul,
+                        sphere_constants, sphere_table)
 
 _SKY = (0.7, 0.8, 1.0)  # shader.rmiss:15
 LANE_PAD = 128  # kernel lanes are padded to a multiple of one CUDA block
 
 # out-of-slice options; each raises NotImplementedError naming its ROADMAP item
-_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 1)"
-_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 2)"
-_TODO_PAGED = "the dense-scene paged kernel (ROADMAP queue 1, item 5)"
-_TODO_PALLAS = "the fused-intersect 'pallas' kernel (ROADMAP queue 1, item 6)"
-_TODO_MATMUL = "the 'matmul' intersect variant (ROADMAP queue 1, item 6)"
+_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 5)"
+_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 6)"
+SPEC_BACKENDS = ("bruteforce", "matmul", "pallas")
+KERNEL_BACKENDS = ("mega", "grid", "paged")
 
 
 class DeviceScene(NamedTuple):
     """Scene tables: numpy on the host (``prepare_scene``) or torch tensors
     on a device (``device_scene_from_numpy``); same fields as the JAX
-    package's DeviceScene.  ``paged`` is always None in the port so far."""
+    package's DeviceScene."""
 
     centers: object  # [S,3] f32
     centers_t: object  # [3,S] f32
@@ -67,7 +78,8 @@ class DeviceScene(NamedTuple):
     attr: object  # [S] f32
     table: object  # [S,24] packed sphere table (ops/intersect.sphere_table)
     grid: object = None  # models.grid.GridTables when the scene fits the grid
-    paged: object = None  # dense-scene tables: not in the port yet
+    paged: object = None  # models.paged_grid.PagedGridTables when the grid
+    #                       cannot hold the scene but the paged grid can
 
 
 class ViewportArrays(NamedTuple):
@@ -84,9 +96,10 @@ class ViewportArrays(NamedTuple):
 
 
 def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
-    """Host-side scene prep (numpy): SoA tables, the packed sphere table and
-    the grid tables.  ``grid_pitch``: cell size in world units, or "auto"
-    (pitch 2 when it keeps the 4-value layout, else pitch 1)."""
+    """Host-side scene prep (numpy): SoA tables, the packed sphere table, the
+    grid tables and, for a scene the grid cannot hold, the paged-grid tables.
+    ``grid_pitch``: cell size in world units, or "auto" (pitch 2 when it
+    keeps the 4-value layout, else pitch 1)."""
     centers = np.asarray(scene.centers, np.float32)
     radii = np.asarray(scene.radii, np.float32)
     n = int(scene.n_spheres)
@@ -98,6 +111,7 @@ def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
             grid = build_grid(scene, table, pitch=1.0)
     else:
         grid = build_grid(scene, table, pitch=float(grid_pitch))
+    paged = None if grid is not None else build_paged_grid(scene, table)
     return DeviceScene(
         centers=centers,
         centers_t=np.ascontiguousarray(centers.T),
@@ -111,7 +125,7 @@ def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
         attr=np.asarray(scene.attr, np.float32),
         table=table,
         grid=grid,
-        paged=None,
+        paged=paged,
     )
 
 
@@ -121,17 +135,21 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device)
 
 
+def _tables(tables, cls, device):
+    if tables is None:
+        return None
+    return cls(**{f: _tensor(getattr(tables, f), device) for f in cls._fields})
+
+
 def device_scene_from_numpy(ds, device) -> DeviceScene:
     """Scene tables onto ``device`` as torch tensors — the port's weight
     import.  ``ds`` is any DeviceScene with numpy-convertible fields: the
-    port's ``prepare_scene`` or the JAX package's (including its
-    GridTables).  Dense-scene (paged) tables are not carried over."""
-    g = ds.grid
-    grid = None if g is None else GridTables(
-        *[_tensor(getattr(g, f), device) for f in GridTables._fields])
+    port's ``prepare_scene`` or the JAX package's, including its GridTables
+    and PagedGridTables, field by field."""
     fields = {f: _tensor(getattr(ds, f), device)
               for f in DeviceScene._fields if f not in ("grid", "paged")}
-    return DeviceScene(**fields, grid=grid, paged=None)
+    return DeviceScene(**fields, grid=_tables(ds.grid, GridTables, device),
+                       paged=_tables(ds.paged, PagedGridTables, device))
 
 
 def tmax_never_binds(scene: SceneArrays, camera: Camera) -> bool:
@@ -234,10 +252,7 @@ def _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign):
         raise NotImplementedError(
             f"grid_steps={tuple(grid_steps)}: the grid-step probes are not "
             "carried over to the port (ROADMAP, 'What does not carry over')")
-    todo = {"paged": _TODO_PAGED, "pallas": _TODO_PALLAS, "matmul": _TODO_MATMUL}
-    if backend in todo:
-        raise NotImplementedError(f"backend={backend!r}: {todo[backend]}")
-    if backend not in ("bruteforce", "mega", "grid"):
+    if backend not in SPEC_BACKENDS + KERNEL_BACKENDS:
         raise ValueError(f"unknown backend: {backend!r}")
 
 
@@ -274,22 +289,50 @@ def render_band(
     any M.  ``rr=(d0, d1, pmin)`` is fast mode's Russian roulette; None is
     the exact reference stream."""
     _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign)
-    if backend in ("mega", "grid"):
-        return _render_band_mega(
-            scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
-            offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
-            max_depth=max_depth, pixels_per_lane=pixels_per_lane,
-            skip_tmax=skip_tmax, backend=backend, rr=rr)
-    return _render_band_spec(
-        scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
-        offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
-        max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
+    kw = dict(band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
+              offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
+              max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
+    if backend == "paged":
+        return _render_band_paged(scene, vp, skip_tmax=skip_tmax, **kw)
+    if backend in KERNEL_BACKENDS:
+        return _render_band_mega(scene, vp, skip_tmax=skip_tmax,
+                                 backend=backend, **kw)
+    return _render_band_spec(scene, vp, backend=backend, **kw)
+
+
+def _shade_inputs(backend, scene: DeviceScene, o, d):
+    """Closest hit + the hit sphere's attributes (JAX ``_shade_inputs``).
+
+    Returns (t [N], hit [N] bool, center [N,3], mat [N] i32, tex [N] i32,
+    c0 [N,3], c1 [N,3], attr [N]).  ``pallas`` gets everything from one
+    fused kernel; ``bruteforce`` and ``matmul`` gather from the SoA tables
+    by the winning index."""
+    if backend == "pallas":
+        from . import pallas_intersect as pk
+
+        t, hit, a = pk.intersect_shade_pallas(o, d, scene.table)
+        return (t, hit, a[:, pk.A_CX : pk.A_CZ + 1],
+                a[:, pk.A_MAT].to(torch.int32), a[:, pk.A_TEX].to(torch.int32),
+                a[:, pk.A_C0 : pk.A_C0 + 3], a[:, pk.A_C1 : pk.A_C1 + 3],
+                a[:, pk.A_ATTR])
+    tmin = float(np.float32(T_MIN))
+    tmax = float(np.float32(MAX_RAY_COLLISION_DISTANCE))
+    if backend == "matmul":
+        t, idx, hit = intersect_matmul(o, d, scene.centers_t, scene.kc,
+                                       scene.valid, tmin, tmax)
+    else:
+        t, idx, hit = intersect_bruteforce(o, d, scene.centers, scene.radii,
+                                           scene.valid, tmin, tmax)
+    return (t, hit, scene.centers[idx], scene.material[idx], scene.texture[idx],
+            scene.color0[idx], scene.color1[idx], scene.attr[idx])
 
 
 def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
-                      number, accum_init, max_depth, pixels_per_lane, rr):
-    """The generic wavefront loop (JAX ``render_band_core``, bruteforce
-    backend) in eager torch: the spec path the kernels are held against."""
+                      number, accum_init, max_depth, pixels_per_lane, rr,
+                      backend="bruteforce"):
+    """The generic wavefront loop (JAX ``render_band_core``) in eager torch:
+    the spec path the kernels are held against (``bruteforce``), and the
+    ``matmul`` / ``pallas`` closest-hit variants."""
     dev = scene.centers.device
     p_total = band_h * width
     m_slots = max(1, min(pixels_per_lane, p_total))
@@ -298,8 +341,6 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     vpt = _viewport_tensors(vp, dev)
     sky = torch.tensor(_SKY, dtype=torch.float32, device=dev)
     init = dict(width=width, y0=y0, seed_y0=seed_y0, offset_x=offset_x)
-    tmin = float(np.float32(T_MIN))
-    tmax = float(np.float32(MAX_RAY_COLLISION_DISTANCE))
 
     fx, fy, seed0 = _pixel_init(lane, number, **init)  # slot 0: pixel = lane
     seed, o, d = _camera_rays(seed0, fx, fy, vpt)
@@ -321,14 +362,7 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     slot_ids = torch.arange(m_slots, device=dev)[None, :]
 
     while bool(alive.any()):
-        t, idx, hit = intersect_bruteforce(o, d, scene.centers, scene.radii,
-                                           scene.valid, tmin, tmax)
-        center = scene.centers[idx]
-        mat = scene.material[idx]
-        tex = scene.texture[idx]
-        c0 = scene.color0[idx]
-        c1 = scene.color1[idx]
-        attr = scene.attr[idx]
+        t, hit, center, mat, tex, c0, c1, attr = _shade_inputs(backend, scene, o, d)
 
         point = o + t[:, None] * d  # shader.rint:33
         outward = _normalize3(point - center)  # shader.rchit:41-43
@@ -402,29 +436,40 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     return acc.reshape(band_h, width, 3)
 
 
+def _state_module(scene, backend, m_slots):
+    """(module holding the state-row constants, f32 state rows) of a band."""
+    from . import gridkernel, megakernel, pagedkernel
+
+    if backend == "paged":
+        na = pagedkernel.layout(scene.paged)[4]  # carried attr rows
+        return pagedkernel, pagedkernel.pf_rows(m_slots, na)
+    mk = gridkernel if backend == "grid" else megakernel
+    return mk, mk.f_rows(m_slots)
+
+
 def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
                width, y0, seed_y0, offset_x, spp, number, accum_init=None,
                pixels_per_lane=1, lane_pad=LANE_PAD):
     """Pack a band's initial wavefront state for the kernel steps.
 
-    Returns (fstate [f_rows(M), n_pad] f32, ustate [U_ROWS, n_pad] int32
+    Returns (fstate [rows, n_pad] f32, ustate [U_ROWS, n_pad] int32
     holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
-    Slot 0 of lane k is pixel k.  Its first camera ray comes from the
-    kernels' own ``camera_rays_rows``, so every sample of the kernel path is
-    generated by one formula and the image is bit-identical for any M.  (The
-    JAX ``_render_band_mega`` uses the spec ``_camera_rays`` here; XLA rewrites both
-    normalizations to ``v * rsqrt(n2)`` so the difference never shows there,
-    but in IEEE arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))`` differ
-    in the last bit.)"""
-    from . import gridkernel, megakernel
+    Slot 0 of lane k is pixel k; ``paged`` state also holds k in its
+    ``U_LANE0`` row.  The first camera ray comes from the kernels' own
+    ``camera_rays_rows``, so every sample of the kernel path is generated by
+    one formula and the image is bit-identical for any M.  (The JAX drivers
+    use the spec ``_camera_rays`` here; XLA rewrites both normalizations to
+    ``v * rsqrt(n2)`` so the difference never shows there, but in IEEE
+    arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))`` differ in the last
+    bit.)"""
+    from . import megakernel
 
-    mk = gridkernel if backend == "grid" else megakernel
     dev = scene.table.device
     p_total = band_h * width
     m_slots = max(1, min(pixels_per_lane, p_total))
     n = -(-p_total // m_slots)  # logical lanes
     n_pad = -(-n // lane_pad) * lane_pad
-    rf = mk.f_rows(m_slots)
+    mk, rf = _state_module(scene, backend, m_slots)
 
     lane = torch.arange(n_pad, dtype=torch.int64, device=dev)
     fx0, fy0, seed0 = _pixel_init(lane, number, width=width, y0=y0,
@@ -450,6 +495,8 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     ustate[mk.U_SEED] = rngops.to_i32(seed)
     ustate[mk.U_SIDX] = 1
     ustate[mk.U_ALIVE] = ((lane < n) & (spp > 0)).to(torch.int32)
+    if backend == "paged":
+        ustate[mk.U_LANE0] = lane.to(torch.int32)
 
     s = np.zeros((1, 8), np.int64)  # scalar slots: megakernel.S_*
     s[0, megakernel.S_SPP] = spp
@@ -464,12 +511,19 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     return fstate, ustate, scal, vpr, geom
 
 
-def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total):
-    """The accumulator rows of a finished state -> [band_h, width, 3]."""
-    from . import gridkernel, megakernel
+def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total,
+                 ustate=None):
+    """The accumulator rows of a finished state -> [band_h, width, 3].
+    ``paged`` state needs its ``ustate``: the lanes are put back in logical
+    order by their ``U_LANE0`` row first."""
+    from . import gridkernel, megakernel, pagedkernel
 
-    mk = gridkernel if backend == "grid" else megakernel
-    return (fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n_lanes]
+    mk = {"grid": gridkernel, "paged": pagedkernel}.get(backend, megakernel)
+    acc = fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots]
+    if backend == "paged":
+        inv = torch.argsort(ustate[mk.U_LANE0], stable=True)
+        acc = acc.index_select(1, inv)
+    return (acc[:, :n_lanes]
             .reshape(m_slots, 3, n_lanes)
             .permute(0, 2, 1)
             .reshape(m_slots * n_lanes, 3)[:p_total]
@@ -507,6 +561,97 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
 
     while bool((ustate[mk.U_ALIVE] != 0).any()):
         fstate, ustate = step(fstate, ustate)
-    return unpack_accum(fstate, backend=backend, band_h=band_h, width=width,
-                        m_slots=geom["m_slots"], n_lanes=geom["n_lanes"],
-                        p_total=geom["p_total"])
+    return unpack_accum(fstate, backend=backend, band_h=band_h, **geom)
+
+
+def _morton(sx, sz):
+    """Interleave two 6-bit page coords, so a sorted run of lanes is a
+    near-square cluster of pages."""
+    def part(v):
+        v = (v | (v << 8)) & 0x00F00F
+        v = (v | (v << 4)) & 0x0C30C3
+        v = (v | (v << 2)) & 0x249249
+        return v
+
+    return part(sx) | (part(sz) << 1)
+
+
+def _rebucket_key(fstate, ustate, gscal):
+    """Sort key of each lane (JAX ``_pred_page``, Morton mode): a marching
+    lane's current page, a fresh lane's page where its ray enters the grid
+    box (4096 if it misses the box), 4097 for dead lanes.  Pages are keyed
+    at 8x8 fine cells, finer than the kernel's 8x16 pages."""
+    from . import pagedkernel as pk
+
+    gs = gscal.reshape(-1)
+    big = torch.tensor(3e30, dtype=torch.float32, device=fstate.device)
+    ox, oy, oz, dx, dy, dz = (fstate[pk.R_O + i] for i in range(6))
+    alive = ustate[pk.U_ALIVE] != 0
+    marching = ustate[pk.U_MARCH] != 0
+    cell = ustate[pk.U_CELL].to(torch.int64)
+    page_m = _morton((cell >> 12) >> 3, (cell & 4095) >> 3)
+
+    def axis_clip(o_c, d_c, lo, hi):
+        inv = 1.0 / d_c
+        ta = (lo - o_c) * inv
+        tb = (hi - o_c) * inv
+        t0 = torch.minimum(ta, tb)
+        t1 = torch.maximum(ta, tb)
+        deg = d_c == 0.0
+        inside = (o_c >= lo) & (o_c <= hi)
+        t0 = torch.where(deg, torch.where(inside, -big, big), t0)
+        t1 = torch.where(deg, torch.where(inside, big, -big), t1)
+        return t0, t1
+
+    t0x, t1x = axis_clip(ox, dx, gs[P_XLO], gs[P_XHI])
+    t0y, t1y = axis_clip(oy, dy, gs[P_YLO], gs[P_YHI])
+    t0z, t1z = axis_clip(oz, dz, gs[P_ZLO], gs[P_ZHI])
+    tmin = torch.tensor(1e-3, dtype=torch.float32, device=fstate.device)
+    t_start = torch.maximum(torch.maximum(t0x, t0y), torch.maximum(t0z, tmin))
+    t_end = torch.minimum(torch.minimum(t1x, t1y), t1z)
+    pxw = ox + t_start * dx
+    pzw = oz + t_start * dz
+    zero = torch.zeros_like(tmin)
+    icx = torch.minimum(torch.maximum(torch.floor((pxw - gs[P_FMINX]) * gs[P_INVS]),
+                                      zero), gs[P_FMAXX])
+    icz = torch.minimum(torch.maximum(torch.floor((pzw - gs[P_FMINZ]) * gs[P_INVS]),
+                                      zero), gs[P_FMAXZ])
+    hits_box = t_start <= t_end
+    page_p = _morton(torch.where(hits_box, icx, 0.0).to(torch.int64) >> 3,
+                     torch.where(hits_box, icz, 0.0).to(torch.int64) >> 3)
+    page_p = torch.where(hits_box, page_p, 4096)
+    key = torch.where(marching, page_m, page_p)
+    return torch.where(alive, key, 4097)
+
+
+def rebucket(fstate, ustate, gscal):
+    """Re-sort the lanes by page (stable argsort of ``_rebucket_key``) so a
+    warp's lanes read few pages; the image does not depend on the order."""
+    perm = torch.argsort(_rebucket_key(fstate, ustate, gscal), stable=True)
+    return fstate.index_select(1, perm), ustate.index_select(1, perm)
+
+
+def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
+                       spp, number, accum_init, max_depth, pixels_per_lane,
+                       skip_tmax, rr=None):
+    """Paged-grid driver (JAX ``_render_band_paged``, Morton key, carried
+    winner attributes): before every launch of ``scaled_k(n)`` iterations
+    the lanes are re-bucketed by page; pixel identity rides in ``U_LANE0``
+    and the accumulator is put back in lane order at the end."""
+    from . import pagedkernel
+
+    if scene.paged is None:
+        raise ValueError("paged backend requires paged-grid tables")
+    g = scene.paged
+    fstate, ustate, scal, vpr, geom = pack_state(
+        scene, vp, backend="paged", band_h=band_h, width=width, y0=y0,
+        seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
+        accum_init=accum_init, pixels_per_lane=pixels_per_lane)
+    k = pagedkernel.scaled_k(geom["n_lanes"])
+    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k)
+    while bool((ustate[pagedkernel.U_ALIVE] != 0).any()):
+        fstate, ustate = rebucket(fstate, ustate, g.gscal)
+        fstate, ustate = pagedkernel.paged_megakernel_step(
+            scal, vpr, g, fstate, ustate, **common)
+    return unpack_accum(fstate, backend="paged", band_h=band_h, ustate=ustate,
+                        **geom)

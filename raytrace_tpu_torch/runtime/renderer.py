@@ -17,15 +17,20 @@ import torch
 
 from ..config import RenderConfig
 from ..models.camera import Camera
+from ..models.paged_grid import build_paged_grid
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
 from ..ops.trace import (_TODO_BALANCE, _TODO_MERGE, DeviceScene,
                          device_scene_from_numpy, prepare_scene, render_band,
                          tmax_never_binds, viewport_arrays)
 
-# lanes per band: the spec path materialises [lanes, spheres, 3]
-# intersection temporaries; the kernel steps keep only [rows, lanes] state
-_TARGET_LANES = {"bruteforce": 1 << 14, "mega": 1 << 21, "grid": 1 << 21}
+# lanes per band: the spec paths materialise [lanes, spheres] (and
+# bruteforce [lanes, spheres, 3]) intersection temporaries; the kernel steps
+# keep only [rows, lanes] state
+_TARGET_LANES = {
+    "bruteforce": 1 << 14, "matmul": 1 << 18, "pallas": 1 << 19,
+    "mega": 1 << 21, "grid": 1 << 21, "paged": 1 << 21,
+}
 CPU_LANES_TARGET = 1 << 12  # the plain steps' lane target on the CPU
 M_MAX = 64  # pixels-per-lane cap
 
@@ -48,12 +53,26 @@ def config_camera(config: RenderConfig) -> Camera:
 
 
 def resolve_backend(requested: str, device_scene: DeviceScene) -> str:
-    """``auto`` -> the grid-DDA kernel when the scene has grid tables, the
-    brute-force megakernel otherwise — on any device: the step wrapper, not
-    the renderer, picks kernel or plain version by the state's device."""
+    """``auto`` -> the grid-DDA kernel when the scene has grid tables, else
+    the paged-grid kernel when it has paged tables, else the brute-force
+    megakernel — on any device: the step wrapper, not the renderer, picks
+    kernel or plain version by the state's device."""
     if requested == "auto":
-        return "grid" if device_scene.grid is not None else "mega"
+        if device_scene.grid is not None:
+            return "grid"
+        return "paged" if device_scene.paged is not None else "mega"
     return requested
+
+
+def render_device(device) -> torch.device:
+    """The device a render runs on: a CUDA device unless the caller asks for
+    the CPU.  Raises when a CUDA device is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the renderer runs on the GPU; pass device='cpu' "
+            "to render on the CPU with the kernels' plain torch versions")
+    return device
 
 
 def lanes_target(device: torch.device) -> int:
@@ -69,10 +88,10 @@ class Renderer:
     """Renders full frames on one device (one ``render_band`` per band)."""
 
     def __init__(self, config: RenderConfig, scene: Optional[SceneArrays] = None,
-                 device=None):
+                 device="cuda"):
         if config.chips > 1:
             raise NotImplementedError(
-                "chips > 1: row bands over several devices (ROADMAP queue 1, item 7)")
+                "chips > 1: row bands over several devices (ROADMAP queue 1, item 9)")
         if config.calls_per_exec > 1:
             raise NotImplementedError(f"calls_per_exec > 1: {_TODO_MERGE}")
         if config.balance_spp > 0:
@@ -80,11 +99,15 @@ class Renderer:
         if config.accum_dtype not in ("float32", "float64"):
             raise ValueError(f"unsupported accum_dtype: {config.accum_dtype!r}")
         self.config = config
-        if device is None:  # the first CUDA device, else the plain steps on the CPU
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = render_device(device)
         self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
-        self.device_scene = device_scene_from_numpy(prepare_scene(self.scene), self.device)
+        prepared = prepare_scene(self.scene)
+        if config.backend == "paged" and prepared.paged is None:
+            # asked for by name on a scene the flat grid holds: build the
+            # paged tables too (None if the scene fits neither)
+            prepared = prepared._replace(
+                paged=build_paged_grid(self.scene, prepared.table))
+        self.device_scene = device_scene_from_numpy(prepared, self.device)
         self.backend = resolve_backend(config.backend, self.device_scene)
         w, h = config.width, config.height
         if config.pixels_per_lane is not None:

@@ -10,9 +10,11 @@ Each test packs a state, takes one launch of the kernel and one call of its
 plain version from it, and requires every state row to be bit-equal
 (NaN == NaN): the kernels and the plain versions run the same IEEE op
 sequence (nvcc --fmad=false, no fast math; CUDA's sinf on both sides).
-The cases cover what the 1080p smoke run does not: the 5-value slot layout,
-the textured-field ``ttab`` path, pitch 2's wider 4-value cells, fast mode,
-a carried accumulator and tables larger than one 512-row block.
+The cases cover what the smoke run does not: the 5-value slot layout, the
+textured-field ``ttab`` path, pitch 2's wider 4-value cells, fast mode, a
+carried accumulator and tables larger than one 512-row block; for the paged
+kernel the varied-height and textured page layouts and re-bucketed lanes;
+for the fused intersect kernel a table of several shared-memory chunks.
 """
 
 import pytest
@@ -20,7 +22,8 @@ import torch
 
 from raytrace_tpu_torch.models.scene import (CHECKERED, generate_random_scene,
                                              random_sphere_field, three_sphere_scene)
-from raytrace_tpu_torch.ops import gridkernel, megakernel, trace
+from raytrace_tpu_torch.ops import (gridkernel, intersect, megakernel, pagedkernel,
+                                    pallas_intersect, trace)
 from raytrace_tpu_torch.runtime.renderer import reference_camera
 
 RR = (1, 16, 0.05)
@@ -140,3 +143,74 @@ def test_wrapper_counts_and_checks(cuda):
         gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f.double(), u, **kw)
     with pytest.raises(ValueError):
         gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f[:, ::2], u[:, ::2], **kw)
+
+
+def _field(y_range=None, textured=False):
+    sc = random_sphere_field(2000, seed=1, extent=7.0, y_range=y_range)
+    if textured:
+        sc.texture[50:200] = CHECKERED
+        sc.color1[50:200] = (0.9, 0.2, 0.1)
+    return sc
+
+
+FIELDS = {
+    "dense": {},
+    "varied": dict(y_range=(0.2, 2.0)),
+    "dense_textured": dict(textured=True),
+    "varied_textured": dict(y_range=(0.2, 2.0), textured=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_paged_kernel_matches_plain(cuda, name, rr):
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(_field(**FIELDS[name])), cuda)
+    assert ds.paged is not None
+    f, u, scal, vpr, geom = _state(ds, "paged", accum=torch.rand((72, 128, 3), device=cuda))
+    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr, k_steps=10)
+    step_k = lambda f_, u_: pagedkernel.paged_megakernel_step(scal, vpr, ds.paged, f_, u_, **kw)
+    step_p = lambda f_, u_: pagedkernel.paged_megakernel_step_plain(scal, vpr, ds.paged, f_, u_, **kw)
+    for _ in range(3):  # re-bucketed like the driver: lane0 != lane
+        f, u = trace.rebucket(f, u, ds.paged.gscal)
+        out_k, out_p = _launch_pair(step_k, step_p, f, u)
+        _assert_same(out_k, out_p)
+        f, u = out_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["book", "field2000"])
+def test_intersect_kernel_matches_plain(cuda, name):
+    """Seeded rays; the 2048-row table spans four shared-memory chunks."""
+    scene = {"book": lambda: generate_random_scene(0.0),
+             "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0)}[name]()
+    table = torch.from_numpy(intersect.sphere_table(scene)).to(cuda)
+    g = torch.Generator().manual_seed(3)
+    o = (torch.randn((50_000, 3), generator=g) * 4 + torch.tensor([0.0, 3.0, 0.0])).to(cuda)
+    d = torch.randn((50_000, 3), generator=g).to(cuda)
+    d = d / d.norm(dim=1, keepdim=True)
+    before = pallas_intersect.intersect_shade_pallas.launches
+    tk, hk, ak = pallas_intersect.intersect_shade_pallas(o, d, table)
+    tp, hp, ap = pallas_intersect.intersect_shade_pallas_plain(o, d, table)
+    torch.cuda.synchronize()
+    assert pallas_intersect.intersect_shade_pallas.launches == before + 1
+    assert bool(hk.any()) and bool((~hk).any())
+    assert torch.equal(tk, tp) and torch.equal(hk, hp) and torch.equal(ak, ap)
+
+
+@pytest.mark.gpu
+def test_paged_and_pallas_renders_match_plain_renders(cuda):
+    """Whole bands: the paged kernel on the dense field and the fused
+    intersect kernel on the book scene, each against the same render on the
+    CPU through the plain versions."""
+    cases = (("paged", trace.prepare_scene(_field()), 48, 27),
+             ("pallas", trace.prepare_scene(generate_random_scene(0.0)), 24, 14))
+    for backend, ds_np, w, h in cases:
+        vp = trace.viewport_arrays(reference_camera(), w, h)
+        kw = dict(band_h=h, width=w, y0=0, seed_y0=0, offset_x=0, spp=2,
+                  number=0, max_depth=12, pixels_per_lane=2, skip_tmax=True,
+                  backend=backend)
+        on_gpu = trace.render_band(trace.device_scene_from_numpy(ds_np, cuda), vp, **kw).cpu()
+        on_cpu = trace.render_band(trace.device_scene_from_numpy(ds_np, "cpu"), vp, **kw)
+        diff = (on_gpu != on_cpu).any(dim=2)
+        assert int(diff.sum()) <= 3, f"{backend}: {int(diff.sum())} px differ"

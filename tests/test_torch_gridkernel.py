@@ -139,12 +139,14 @@ def test_dense_field_builds_no_grid():
     """``random_sphere_field(2000, seed=1, extent=7.0)`` crowds its cells
     past the slot limit in both packages' builders (it is the JAX paged
     backend's field), so the 5-value layout is tested on ``tall_field``
-    below and this field renders on the megakernel."""
+    below and this field gets paged-grid tables and renders on the paged
+    kernel (tests/test_torch_paged.py)."""
     sc = random_sphere_field(2000, seed=1, extent=7.0)
     assert trace.prepare_scene(sc).grid is None
     assert jtrace.prepare_scene(j_field(2000, seed=1, extent=7.0)).grid is None
     ds = trace.device_scene_from_numpy(trace.prepare_scene(sc), "cpu")
-    assert resolve_backend("auto", ds) == "mega"
+    assert ds.paged is not None
+    assert resolve_backend("auto", ds) == "paged"
 
 
 def _textured_field():

@@ -3,8 +3,8 @@
 ``raytrace_tpu_torch.ray_trace`` must reproduce the oracle golden through the
 public entry point (u8 within one level on all but 3 pixels, the chaos
 budget of tests/test_golden_fullscene.py), keep chunking and progressive
-calls exact, refuse every option the port does not run yet by name, and
-never import jax.
+calls exact, run every backend, refuse every option the port does not run
+yet by name, run on the CPU only when asked to, and never import jax.
 """
 
 import dataclasses
@@ -20,7 +20,8 @@ import raytrace_tpu_torch
 from raytrace_tpu.ops.image import accum_to_u8 as j_accum_to_u8
 from raytrace_tpu_torch import RenderConfig
 from raytrace_tpu_torch.models.scene import three_sphere_scene
-from raytrace_tpu_torch.ops import gridkernel, megakernel, trace
+from raytrace_tpu_torch.ops import (gridkernel, megakernel, pagedkernel,
+                                    pallas_intersect, trace)
 from raytrace_tpu_torch.ops.image import accum_to_u8
 from raytrace_tpu_torch.runtime.renderer import Renderer, reference_camera
 from raytrace_tpu_torch.utils.png import encode_png
@@ -35,7 +36,8 @@ def test_ray_trace_matches_golden_and_writes_png(tmp_path, capsys):
     out = tmp_path / "r.png"
     before = gridkernel.grid_megakernel_step_plain.launches
     img = raytrace_tpu_torch.ray_trace(samples=2, width=24, height=14, max_depth=12,
-                                       store_render_result=True, out_path=str(out))
+                                       store_render_result=True, out_path=str(out),
+                                       device="cpu")
     assert gridkernel.grid_megakernel_step_plain.launches > before  # auto -> grid
     assert "duration_per_frame:" in capsys.readouterr().out
     ref = np.asarray(j_accum_to_u8(np.load(GOLDEN), 2))
@@ -55,15 +57,15 @@ def test_accum_to_u8_matches_jax():
 @pytest.mark.parametrize("backend", ["grid", "bruteforce"])
 def test_chunk_rows_invariant(backend):
     cfg = RenderConfig(samples=1, width=32, height=18, max_depth=6, backend=backend)
-    whole = Renderer(cfg).render_call(1)
-    r = Renderer(cfg)
+    whole = Renderer(cfg, device="cpu").render_call(1)
+    r = Renderer(cfg, device="cpu")
     r.chunk_rows = 5  # bands of 5, 5, 5, 3 rows
     assert torch.equal(r.render_call(1), whole)
 
 
 def test_progressive_samples_per_call():
     cfg = RenderConfig(samples=3, width=24, height=14, max_depth=6, samples_per_call=2)
-    r = Renderer(cfg)
+    r = Renderer(cfg, device="cpu")
     acc, total = r.render()
     assert total == 3
     one = r.render_call(2, number=0)
@@ -75,15 +77,17 @@ def test_progressive_samples_per_call():
 
 def test_float64_accumulation():
     cfg = RenderConfig(samples=2, width=16, height=9, max_depth=6, samples_per_call=1)
-    acc32, _ = Renderer(cfg).render()
-    acc64, _ = Renderer(dataclasses.replace(cfg, accum_dtype="float64")).render()
+    acc32, _ = Renderer(cfg, device="cpu").render()
+    acc64, _ = Renderer(dataclasses.replace(cfg, accum_dtype="float64"),
+                        device="cpu").render()
     assert acc64.dtype == torch.float64
     assert torch.allclose(acc64, acc32.double(), rtol=1e-6, atol=1e-6)
 
 
 def test_mega_backend_and_three_sphere_scene_resolve_to_mega():
     sc = three_sphere_scene()  # no small-sphere field: no grid tables
-    r = Renderer(RenderConfig(samples=1, width=16, height=9, max_depth=4), scene=sc)
+    r = Renderer(RenderConfig(samples=1, width=16, height=9, max_depth=4), scene=sc,
+                 device="cpu")
     assert r.backend == "mega"
     before = megakernel.megakernel_step_plain.launches
     r.render_call(1)
@@ -93,18 +97,50 @@ def test_mega_backend_and_three_sphere_scene_resolve_to_mega():
 @pytest.mark.parametrize("kw", [
     dict(gpu_count=2),
     dict(balance_spp=8),
-    dict(backend="paged"),
-    dict(backend="pallas"),
-    dict(backend="matmul"),
 ])
 def test_out_of_slice_ray_trace_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        raytrace_tpu_torch.ray_trace(samples=1, width=8, height=4, max_depth=2, **kw)
+        raytrace_tpu_torch.ray_trace(samples=1, width=8, height=4, max_depth=2,
+                                     device="cpu", **kw)
+
+
+@pytest.mark.parametrize("backend", ["paged", "pallas", "matmul"])
+def test_ray_trace_backends_on_cpu(backend):
+    """Each backend renders the book scene through ``ray_trace`` on the CPU
+    (``paged`` asked for by name builds the paged tables of a scene the flat
+    grid holds) through its step's or kernel's plain version, close to the
+    grid render: the image differs from it only on fp-chaotic pixels."""
+    counter = {"paged": pagedkernel.paged_megakernel_step_plain,
+               "pallas": pallas_intersect.intersect_shade_pallas_plain,
+               "matmul": None}[backend]
+    before = counter.launches if counter else 0
+    kw = dict(samples=2, width=24, height=14, max_depth=8, device="cpu")
+    img = raytrace_tpu_torch.ray_trace(backend=backend, **kw)
+    if counter:
+        assert counter.launches > before
+    ref = raytrace_tpu_torch.ray_trace(backend="grid", **kw)
+    close = (np.abs(img.astype(int) - ref.astype(int)).max(axis=2) <= 1).mean()
+    assert close > (0.99 if backend == "paged" else 0.85), close
+
+
+def test_cuda_is_the_default_device():
+    """Without a CUDA device the entry points raise unless asked for the
+    CPU; they never fall back to it on their own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    cfg = RenderConfig(samples=1, width=8, height=4, max_depth=2)
+    for call in (lambda: raytrace_tpu_torch.ray_trace(samples=1, width=8, height=4),
+                 lambda: raytrace_tpu_torch.render_image(cfg),
+                 lambda: Renderer(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert Renderer(cfg, device="cpu").device.type == "cpu"
 
 
 def test_out_of_slice_config_and_band_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(RenderConfig(samples=1, width=8, height=4, calls_per_exec=2))
+        Renderer(RenderConfig(samples=1, width=8, height=4, calls_per_exec=2),
+                 device="cpu")
     ds = trace.device_scene_from_numpy(
         trace.prepare_scene(raytrace_tpu_torch.generate_random_scene(0.0)), "cpu")
     vp = trace.viewport_arrays(reference_camera(), 8, 4)

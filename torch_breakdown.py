@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of one ``raytrace_tpu_torch.ray_trace`` frame goes, on one GPU.
+"""Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
-Run from the repository root with no arguments: ``python3
-torch_breakdown.py``.  It needs one CUDA device and builds the port's kernels
-on first use.  It times, for the book scene at 1920x1080 and 16 spp (the
-smoke run's main path), each step three times:
+Run from the repository root: ``python3 torch_breakdown.py [--scene
+book|dense]``.  It needs one CUDA device and builds the port's kernels on
+first use.  ``--scene book`` (the default) times the book scene at 1920x1080
+and 16 spp on the grid kernel (``ray_trace``'s main path); ``--scene dense``
+times ``random_sphere_field(100_000)`` at 3840x2160 and 8 spp on the paged
+kernel (``render_image``'s dense-scene path).  Each step is timed three times:
 
-- the host steps of a render: scene generation, ``prepare_scene``, the table
-  upload, ``Renderer`` construction (host clock);
+- the host steps of a render: scene generation, ``prepare_scene`` (for the
+  dense scene also its parts: the flat-grid attempt that returns None and
+  the paged-grid build), the table upload, ``Renderer`` construction (host
+  clock);
 - ``Renderer.render`` in exact and fast mode, steady state after one warm-up
   (host clock around work that ends in ``torch.cuda.synchronize()``);
-- one instrumented render per mode: each grid-kernel launch timed with CUDA
-  events, with the number of lanes alive going into it;
+- one instrumented render per mode: each kernel launch timed with CUDA
+  events, with the number of lanes alive going into it, and each lane
+  re-bucket of the paged driver timed the same way;
 - the tonemap and copy to the host, and the PNG encode;
-- the same exact frame on the brute-force megakernel;
-- the device time of the grid kernel under ``torch.profiler``.
+- the same exact frame on the brute-force megakernel (book scene only: on
+  100k spheres it would take minutes);
+- the device time of the kernel under ``torch.profiler``.
 
 It prints the card's name and power limit, one JSON object of the timings,
 then one of the profiler's device time.
@@ -22,6 +28,7 @@ then one of the profiler's device time.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -30,7 +37,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SPP, WIDTH, HEIGHT, REPS = 16, 1920, 1080, 3
+REPS = 3
+# scene -> (spp, width, height, step module, step name)
+SCENES = {"book": (16, 1920, 1080, "gridkernel", "grid_megakernel_step"),
+          "dense": (8, 3840, 2160, "pagedkernel", "paged_megakernel_step")}
+DENSE_N = 100_000
 
 
 def wall(fn):
@@ -44,80 +55,119 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def instrumented(renderer, mod, name):
-    """Render once with each launch of ``mod.<name>`` timed by CUDA events;
-    returns (wall s, per-launch ms, alive lanes going into each launch)."""
+def _events():
     import torch
 
-    orig = getattr(mod, name)
-    ms, alive = [], []
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def instrumented(renderer, mod, name):
+    """Render once with each launch of ``mod.<name>`` and each
+    ``trace.rebucket`` timed by CUDA events; returns (wall s, per-launch ms,
+    alive lanes going into each launch, per-re-bucket ms)."""
+    from raytrace_tpu_torch.ops import trace
+
+    orig, orig_rb = getattr(mod, name), trace.rebucket
+    launch_ev, rb_ev, alive = [], [], []
 
     def timed(*args, **kw):
         u = args[4]  # ustate
         alive.append(int((u[mod.U_ALIVE] != 0).sum()))
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+        a, b = _events()
         a.record()
         out = orig(*args, **kw)
         b.record()
-        b.synchronize()
-        ms.append(round(a.elapsed_time(b), 3))
+        launch_ev.append((a, b))
+        return out
+
+    def timed_rebucket(*args):
+        a, b = _events()
+        a.record()
+        out = orig_rb(*args)
+        b.record()
+        rb_ev.append((a, b))
         return out
 
     timed.launches = orig.launches  # the wrapper counts through its module name
     setattr(mod, name, timed)
+    trace.rebucket = timed_rebucket
     try:
         _, sec = wall(renderer.render)
     finally:
         setattr(mod, name, orig)
+        trace.rebucket = orig_rb
         orig.launches = timed.launches
-    return sec, ms, alive
+    ms = [round(a.elapsed_time(b), 3) for a, b in launch_ev]
+    rb_ms = [round(a.elapsed_time(b), 3) for a, b in rb_ev]
+    return sec, ms, alive, rb_ms
 
 
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=sorted(SCENES), default="book")
+    scene_name = ap.parse_args().scene
     if not torch.cuda.is_available():
         print("torch_breakdown: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
 
+    import importlib
+
     from raytrace_tpu_torch import RenderConfig
-    from raytrace_tpu_torch.models.scene import generate_random_scene
-    from raytrace_tpu_torch.ops import gridkernel, trace
+    from raytrace_tpu_torch.models.grid import build_grid
+    from raytrace_tpu_torch.models.paged_grid import build_paged_grid
+    from raytrace_tpu_torch.models.scene import generate_random_scene, random_sphere_field
+    from raytrace_tpu_torch.ops import trace
     from raytrace_tpu_torch.ops.image import accum_to_u8
+    from raytrace_tpu_torch.ops.intersect import sphere_table
     from raytrace_tpu_torch.runtime.renderer import Renderer
     from raytrace_tpu_torch.utils.png import encode_png
 
+    spp, width, height, mod_name, step_name = SCENES[scene_name]
+    mod = importlib.import_module(f"raytrace_tpu_torch.ops.{mod_name}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
-    res = {"device": torch.cuda.get_device_name(0), "spp": SPP,
-           "width": WIDTH, "height": HEIGHT}
+    res = {"device": torch.cuda.get_device_name(0), "scene": scene_name, "spp": spp,
+           "width": width, "height": height}
     reps = range(REPS)
 
-    scenes = [wall(lambda: generate_random_scene(0.0)) for _ in reps]
+    make = ((lambda: generate_random_scene(0.0)) if scene_name == "book"
+            else (lambda: random_sphere_field(DENSE_N)))
+    scenes = [wall(make) for _ in reps]
     res["scene_gen_s"] = [s for _, s in scenes]
     scene = scenes[0][0]
     preps = [wall(lambda: trace.prepare_scene(scene)) for _ in reps]
     res["prepare_scene_s"] = [s for _, s in preps]
+    if scene_name == "dense":
+        table = sphere_table(scene)
+        res["build_grid_attempt_s"] = [wall(lambda: build_grid(scene, table))[1] for _ in reps]
+        res["build_paged_grid_s"] = [wall(lambda: build_paged_grid(scene, table))[1]
+                                     for _ in reps]
+        g = preps[0][0].paged
+        res["paged_table_bytes"] = int(g.geom.nbytes + g.lids.nbytes + g.attrs.nbytes)
     res["upload_s"] = [wall(lambda: trace.device_scene_from_numpy(preps[0][0], dev))[1]
                        for _ in reps]
 
     def cfg(**kw):
-        return RenderConfig(samples=SPP, width=WIDTH, height=HEIGHT, **kw)
+        return RenderConfig(samples=spp, width=width, height=height, **kw)
 
     res["renderer_init_s"] = [wall(lambda: Renderer(cfg(), scene=scene, device=dev))[1]
                               for _ in reps]
     for mode in ("exact", "fast"):
         r = Renderer(cfg(mode=mode), scene=scene, device=dev)
+        res[f"{mode}_backend"], res[f"{mode}_m"] = r.backend, r.pixels_per_lane
         renders = [wall(r.render) for _ in range(REPS + 1)]  # first: warm-up
         res[f"render_{mode}_s"] = [s for _, s in renders]
-        sec, ms, alive = instrumented(r, gridkernel, "grid_megakernel_step")
+        sec, ms, alive, rb_ms = instrumented(r, mod, step_name)
         res[f"{mode}_instrumented_wall_s"] = sec
         res[f"{mode}_launches"] = len(ms)
         res[f"{mode}_kernel_ms_sum"] = sum(ms)
+        res[f"{mode}_rebucket_ms_sum"] = sum(rb_ms)
+        res[f"{mode}_host_ms"] = sec * 1e3 - sum(ms) - sum(rb_ms)
         res[f"{mode}_kernel_ms_each"] = ms
         res[f"{mode}_alive_lanes_in"] = alive
         accum, total = renders[-1][0]
@@ -126,8 +176,9 @@ def main() -> int:
         img = accum_to_u8(accum, total).cpu().numpy()
         res[f"{mode}_png_encode_s"] = [wall(lambda: encode_png(img))[1] for _ in reps]
 
-    r = Renderer(cfg(backend="mega"), scene=scene, device=dev)
-    res["mega_render_exact_s"] = [wall(r.render)[1] for _ in range(REPS + 1)]
+    if scene_name == "book":
+        r = Renderer(cfg(backend="mega"), scene=scene, device=dev)
+        res["mega_render_exact_s"] = [wall(r.render)[1] for _ in range(REPS + 1)]
 
     res["render_exact_median_s"] = statistics.median(res["render_exact_s"][1:])
     print(json.dumps(res), flush=True)
@@ -136,9 +187,9 @@ def main() -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         wall(r.render)
-    dev_us = [e.device_time_total for e in prof.key_averages()
-              if "grid_megakernel" in e.key]
-    print(json.dumps({"profiler_grid_kernel_device_ms":
+    kernel = step_name.replace("_step", "")
+    dev_us = [e.device_time_total for e in prof.key_averages() if kernel in e.key]
+    print(json.dumps({f"profiler_{kernel}_device_ms":
                       (sum(dev_us) / 1e3) if dev_us else None}))
     return 0
 
