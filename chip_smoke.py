@@ -16,10 +16,14 @@ one line and raises on failure, so any failure exits non-zero:
    with both times (CUDA events, median of several calls) and the least time
    the card could take for the work (bytes over 3.35 TB/s or fp32 operations
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs):
-   the grid and brute-force steps on a book-scene state at the 1920x1080
-   lane count, the paged step on a 100k-sphere state at the 3840x2160 lane
-   count (re-bucketed like the driver), and the fused intersect kernel on
-   the 259,200 rays of the book-scene state;
+   the grid step on a book-scene state at the 1920x1080 lane count; the
+   brute-force step on the three-sphere state (the path that launches it)
+   and on the book-scene state, at the same lane count, the kernel scanning
+   the table's valid prefix and the plain version every row; the paged step
+   on the sorted and compacted live lanes of a 100k-sphere state at the
+   3840x2160 lane count, with its home-order accumulator (every pixel
+   bit-equal) and its sort-key row (equal to ``trace._rebucket_key``); and
+   the fused intersect kernel on the 259,200 rays of the book-scene state;
 4. gates: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
    by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), grid == mega and
    paged == mega on the 100k-sphere field exactly at 128x72, depth 4, and
@@ -30,8 +34,9 @@ one line and raises on failure, so any failure exits non-zero:
    store_render_result=True)`` on the book scene, exact and fast (grid
    kernel); ``render_image`` of the three-sphere scene at the same size
    (brute-force megakernel); ``render_image`` of ``random_sphere_field(100_000)``
-   at 3840x2160 x 8 spp, exact and fast (paged kernel; the share of the wall
-   spent re-bucketing lanes is printed); ``ray_trace(samples=2, width=1920,
+   at 3840x2160 x 8 spp, exact and fast (paged kernel; the re-bucket's sort
+   and gather per launch, their share of the wall and the live lanes at the
+   first and last launches are printed); ``ray_trace(samples=2, width=1920,
    height=1080, backend="pallas")`` (fused intersect kernel); and the
    ``matmul`` backend on the three-sphere scene at 480x270, 1 spp, depth 8.
    Each kernel must have launched, and no plain version.
@@ -171,26 +176,35 @@ def main() -> int:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
-                   tables, src, repl, k_steps=None, advance=None):
-        """Pack a band state at (w, h)'s lane count, take it two launches
-        in, then one kernel launch and one plain call from there in exact and
-        fast mode; time both in exact mode; returns the exact-mode input."""
+    def step_state(backend, dsc, w, h, spp):
+        """A band state at (w, h)'s lane count (the renderer's M)."""
         m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev)), 1, rmod.M_MAX))
         vp = trace.viewport_arrays(cam, w, h)
-        f0, u0, scal, vpr, geom = trace.pack_state(
+        return m, trace.pack_state(
             dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
             offset_x=0, spp=spp, number=0, pixels_per_lane=m)
-        advance = advance or (lambda f, u: (f, u))
-        max_err, exact_in = 0.0, None
+
+    def step_timing(ms, plain_ms, work, moved):
+        ops = (OPS_QUADRATIC * work["quadratics"] + OPS_LANE_ITER * work["lane_iters"]
+               + OPS_SEGMENT * work.get("segments", 0))
+        bound_ms, bound_by = bound(moved, ops)
+        text = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch, "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {ops} ops; work {work})")
+        return bound_ms, bound_by, text
+
+    def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
+                   tables, label=""):
+        """Pack a band state at (w, h)'s lane count, take it two launches
+        in, then one kernel launch and one plain call from there in exact and
+        fast mode; time both in exact mode.  Returns (exact-mode input,
+        max |diff|, ms, plain ms, bound ms, bound by)."""
+        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp)
+        max_err, out = 0.0, None
         for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
             g = dict(geom, max_depth=50, skip_tmax=skip_tmax, rr=rr)
-            if k_steps is not None:
-                g["k_steps"] = k_steps
-            f, u = f0, u0
+            f1, u1 = f0, u0
             for _ in range(2):
-                f, u = call(kern, scal, vpr, *advance(f, u), g)
-            f1, u1 = advance(f, u)
+                f1, u1 = call(kern, scal, vpr, f1, u1, g)
             work = {}
             out_k = call(kern, scal, vpr, f1, u1, g)
             out_p = call(plain, scal, vpr, f1, u1, g, work=work)
@@ -198,54 +212,119 @@ def main() -> int:
             n_bad, err = compare(out_k, out_p)
             max_err = max(max_err, err)
             n = f1.shape[1]
+            timing = ""
             if mode == "exact":
-                exact_in = (f1, u1)
                 ms = cuda_ms(lambda: call(kern, scal, vpr, f1, u1, g), 5)
                 plain_ms = cuda_ms(lambda: call(plain, scal, vpr, f1, u1, g), 2)
-                ops = (OPS_QUADRATIC * work["quadratics"]
-                       + OPS_LANE_ITER * work["lane_iters"]
-                       + OPS_SEGMENT * work.get("segments", 0))
                 moved = 2 * nbytes(f1, u1) + nbytes(scal, vpr, *tables)
-                bound_ms, bound_by = bound(moved, ops)
-                timing = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per launch, "
-                          f"bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {ops} ops; "
-                          f"work {work})")
-            else:
-                timing = ""
-            phase("kernel", f"{name} {mode}: {n} lanes (M={m}), {n_bad} lanes "
+                bound_ms, bound_by, timing = step_timing(ms, plain_ms, work, moved)
+                out = ((f1, u1), ms, plain_ms, bound_ms, bound_by)
+            phase("kernel", f"{name}{label} {mode}: {n} lanes (M={m}), {n_bad} lanes "
                   f"differ from the plain version, max |diff| {err}{timing}")
             if n_bad > n // 1000:
-                raise RuntimeError(f"{name} {mode}: {n_bad}/{n} lanes differ (> 0.1%)")
+                raise RuntimeError(f"{name}{label} {mode}: {n_bad}/{n} lanes differ (> 0.1%)")
+        return out[0], max_err, *out[1:]
+
+    def record(name, src, repl, max_err, ms, plain_ms, bound_ms, bound_by, **extra):
         records[name] = dict(name=name, route="cuda", source=src, replaces=repl,
                              launches=0, max_abs_err=max_err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None)
-        return exact_in
+                             bound_by=bound_by, library_ms=None, **extra)
 
     grid_tables = [getattr(ds.grid, f) for f in ds.grid._fields]
-    check_step("grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
-               gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
-               lambda k, s, v, f, u, g, **x: k(s, v, ds.grid, f, u, **g, **x),
-               grid_tables, "raytrace_tpu_torch/csrc/gridkernel.cu",
-               "raytrace_tpu/ops/gridkernel.py:1123")
-    f_mid, _ = check_step(
-        "megakernel_step", "mega", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
-        megakernel.megakernel_step, megakernel.megakernel_step_plain,
-        lambda k, s, v, f, u, g, **x: k(s, v, ds.table, atab, f, u, **g, **x),
-        [ds.table, atab], "raytrace_tpu_torch/csrc/megakernel.cu",
-        "raytrace_tpu/ops/megakernel.py:473")
-    dense_lanes = -(-(DENSE_W * DENSE_H) // int(np.clip(
-        -(-(DENSE_W * DENSE_H) // rmod.lanes_target(dev)), 1, rmod.M_MAX)))
-    paged_tables = [dds.paged.geom, dds.paged.lids, dds.paged.attrs,
-                    dds.paged.gtab, dds.paged.gscal]
-    check_step("paged_megakernel_step", "paged", dds, DENSE_W, DENSE_H, DENSE_SPP,
-               dense_skip, pagedkernel.paged_megakernel_step,
-               pagedkernel.paged_megakernel_step_plain,
-               lambda k, s, v, f, u, g, **x: k(s, v, dds.paged, f, u, **g, **x),
-               paged_tables, "raytrace_tpu_torch/csrc/pagedkernel.cu",
-               "raytrace_tpu/ops/pagedkernel.py:794",
-               k_steps=pagedkernel.scaled_k(dense_lanes),
-               advance=lambda f, u: trace.rebucket(f, u, dds.paged.gscal))
+    _, *res = check_step(
+        "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+        gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+        lambda k, s, v, f, u, g, **x: k(s, v, ds.grid, f, u, **g, **x), grid_tables)
+    record("grid_megakernel_step", "raytrace_tpu_torch/csrc/gridkernel.cu",
+           "raytrace_tpu/ops/gridkernel.py:1123", *res)
+
+    # the brute-force kernel scans the valid prefix of the table; its plain
+    # version scans every row
+    def mega_call(dsc, at):
+        n_valid = int(dsc.valid.sum())
+
+        def call(k, s, v, f, u, g, **x):
+            if k is megakernel.megakernel_step:
+                x = dict(x, n_valid=n_valid)
+            return k(s, v, dsc.table, at, f, u, **g, **x)
+        return call
+
+    # row 1: the three-sphere state, the path that launches the kernel;
+    # the book-scene state as a second figure
+    three = three_sphere_scene()
+    ds3 = trace.device_scene_from_numpy(trace.prepare_scene(three), dev)
+    atab3 = ds3.table[:, 8:24].T.contiguous()
+    mega_res = {}
+    for label, dsc, at, sk in ((" (three-sphere)", ds3, atab3, trace.tmax_never_binds(three, cam)),
+                               (" (book)", ds, atab, skip)):
+        for staged in (False, True):
+            megakernel.STAGED = staged
+            mega_res[label, staged] = check_step(
+                "megakernel_step", "mega", dsc, MAIN_W, MAIN_H, MAIN_SPP, sk,
+                megakernel.megakernel_step, megakernel.megakernel_step_plain,
+                mega_call(dsc, at), [dsc.table, at],
+                label=label + (" staged" if staged else ""))
+    megakernel.STAGED = False
+    f_mid = mega_res[" (book)", False][0][0]
+    (_, err3, *res3), (_, errb, *resb) = (mega_res[" (three-sphere)", False],
+                                          mega_res[" (book)", False])
+    record("megakernel_step", "raytrace_tpu_torch/csrc/megakernel.cu",
+           "raytrace_tpu/ops/megakernel.py:473", max(err3, errb), *res3,
+           book_ms=resb[0], book_plain_ms=resb[1], book_bound_ms=resb[2],
+           staged_ms=mega_res[" (three-sphere)", True][2],
+           book_staged_ms=mega_res[" (book)", True][2])
+
+    # the paged kernel on the driver's sorted and compacted live lanes, two
+    # launches into the 100k frame; its home-order accumulator and its key
+    # row are checked too
+    dm, (pf0, pu0, pscal, pvpr, pgeom) = step_state("paged", dds, DENSE_W, DENSE_H, DENSE_SPP)
+    gs = dds.paged.gscal
+    paged_tables = [dds.paged.geom, dds.paged.lids, dds.paged.attrs, dds.paged.gtab, gs]
+    max_err = 0.0
+    for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
+        g = dict(pgeom, max_depth=50, skip_tmax=dense_skip, rr=rr,
+                 k_steps=pagedkernel.scaled_k(pgeom["n_lanes"]))
+        acc = trace.home_accum(None, pgeom["p_total"], dev)
+        f1, u1, key = pf0, pu0, trace._rebucket_key(pf0, pu0, gs)
+        for _ in range(2):
+            f1, u1 = trace.gather_lanes(f1, u1, trace.live_order(key))
+            f1, u1, key = pagedkernel.paged_megakernel_step(
+                pscal, pvpr, dds.paged, f1, u1, acc, **g)
+        f1, u1 = trace.gather_lanes(f1, u1, trace.live_order(key))
+        acc_k, acc_p, work = acc.clone(), acc.clone(), {}
+        fk, uk, kk = pagedkernel.paged_megakernel_step(pscal, pvpr, dds.paged, f1, u1, acc_k, **g)
+        fp, up, kp = pagedkernel.paged_megakernel_step_plain(
+            pscal, pvpr, dds.paged, f1, u1, acc_p, work=work, **g)
+        torch.cuda.synchronize()
+        n = f1.shape[1]
+        n_bad, err = compare((fk, uk, kk[None]), (fp, up, kp[None]))
+        acc_bad, acc_err = compare((acc_k.T,), (acc_p.T,))
+        key_bad = int((kk != trace._rebucket_key(fk, uk, gs)).sum())
+        max_err = max(max_err, err, acc_err)
+        timing = ""
+        if mode == "exact":
+            acc_t = acc.clone()
+            p_ms = cuda_ms(lambda: pagedkernel.paged_megakernel_step(
+                pscal, pvpr, dds.paged, f1, u1, acc_t, **g), 5)
+            p_plain_ms = cuda_ms(lambda: pagedkernel.paged_megakernel_step_plain(
+                pscal, pvpr, dds.paged, f1, u1, acc_t, **g), 2)
+            # the live lanes' state in and out, the key row, each flushed
+            # pixel's slot read and written, the tables once
+            moved = (2 * nbytes(f1, u1) + nbytes(kk) + 24 * work.get("flushes", 0)
+                     + nbytes(pscal, pvpr, *paged_tables))
+            p_bound_ms, p_bound_by, timing = step_timing(p_ms, p_plain_ms, work, moved)
+        phase("kernel", f"paged_megakernel_step {mode}: {n} live lanes of "
+              f"{pgeom['n_lanes']} (M={dm}), {n_bad} lanes differ from the plain version "
+              f"(state and key), {acc_bad} of {pgeom['p_total']} accumulator pixels differ, "
+              f"{key_bad} key rows differ from _rebucket_key, max |diff| {max(err, acc_err)}"
+              f"{timing}")
+        if n_bad > n // 1000 or acc_bad or key_bad:
+            raise RuntimeError(f"paged_megakernel_step {mode}: {n_bad}/{n} lanes, "
+                               f"{acc_bad} pixels, {key_bad} keys differ")
+    record("paged_megakernel_step", "raytrace_tpu_torch/csrc/pagedkernel.cu",
+           "raytrace_tpu/ops/pagedkernel.py:794", max_err, p_ms, p_plain_ms,
+           p_bound_ms, p_bound_by)
 
     # the fused intersect kernel on the rays of the book-scene state two
     # launches into a 1080p render (259,200 camera and bounce rays)
@@ -350,16 +429,23 @@ def main() -> int:
                 pagedkernel.paged_megakernel_step_plain,
                 pallas_intersect.intersect_shade_pallas_plain)
     plain_names = [c.__name__ for c in counters[4:]]
-    rebucket_events = []
-    orig_rebucket = trace.rebucket
+    sort_events, gather_events, live = [], [], []
+    orig_order, orig_gather = trace.live_order, trace.gather_lanes
 
-    def timed_rebucket(*args):  # CUDA events around each re-bucket
-        a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a_.record()
-        out = orig_rebucket(*args)
-        b_.record()
-        rebucket_events.append((a_, b_))
-        return out
+    def timed(fn, events):  # CUDA events around each call
+        def wrapped(*args):
+            a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a_.record()
+            out = fn(*args)
+            b_.record()
+            events.append((a_, b_))
+            return out
+        return wrapped
+
+    def timed_order(key):
+        perm = timed(orig_order, sort_events)(key)
+        live.append(perm.numel())
+        return perm
 
     def launches():
         return {c.__name__: c.launches for c in counters}
@@ -377,8 +463,10 @@ def main() -> int:
 
     def dense(mode):
         cfg = RenderConfig(samples=DENSE_SPP, width=DENSE_W, height=DENSE_H, mode=mode)
-        rebucket_events.clear()
-        trace.rebucket = timed_rebucket
+        for lst in (sort_events, gather_events, live):
+            lst.clear()
+        trace.live_order = timed_order
+        trace.gather_lanes = timed(orig_gather, gather_events)
         try:
             t0 = time.perf_counter()
             img = raytrace_tpu_torch.render_image(cfg, scene=random_sphere_field(DENSE_N),
@@ -386,10 +474,14 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            trace.rebucket = orig_rebucket
-        rb = sum(a_.elapsed_time(b_) for a_, b_ in rebucket_events) / 1e3
-        return img, (f"re-bucket {rb:.4f} s in {len(rebucket_events)} calls = "
-                     f"{rb / wall:.2%} of the wall")
+            trace.live_order, trace.gather_lanes = orig_order, orig_gather
+        srt, gat = (sum(a_.elapsed_time(b_) for a_, b_ in ev) / 1e3
+                    for ev in (sort_events, gather_events))
+        n_rb = len(gather_events)
+        return img, (f"re-bucket (sort {srt:.4f} s + gather {gat:.4f} s) in {n_rb} "
+                     f"launches = {(srt + gat) / n_rb * 1e3:.3f} ms per launch, "
+                     f"{(srt + gat) / wall:.2%} of the wall; live lanes at the first "
+                     f"launch {live[0]}, at the last {live[-2]}")
 
     def pallas():
         img = raytrace_tpu_torch.ray_trace(samples=2, width=MAIN_W, height=MAIN_H,

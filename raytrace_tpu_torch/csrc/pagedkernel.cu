@@ -11,32 +11,39 @@
 // are loaded from geom[page][s * w + v][fc] and tested with the exact
 // quadratic; where the winner improved, the winning slot's page-local id is
 // loaded from lids[page][wslot][fc] and the winner's attributes from
-// attrs[page][v * ab + (lid >> 7)][lid & 127] at once, and carried in state
-// rows until the segment ends; then shading, termination, the running pixel
-// sum `cur` flushed into the acc slot, and regeneration addressed by the
-// lane's `lane0` row (the driver re-buckets lanes between launches).  A dead
-// lane copies its state through and returns at once (the per-tile
-// dead-skip).
+// attrs[page][v * ab + (lid >> 7)][lid & 127] at once, and carried in
+// registers until the segment ends; then shading, termination, and the
+// running pixel sum `cur` flushed into the pixel's slot of the accumulator,
+// and regeneration addressed by the lane's `lane0` row.
 //
 // The TPU kernel's per-128-lane page-box loops exist because a Mosaic lane
 // gather addresses 128 entries; here every lane loads what it needs by
-// index, so there is no box loop, no distinct-page walk and no Morton logic
-// in the kernel (the Morton re-bucket stays in the driver, where it keeps a
-// warp's lanes on few pages so their loads share cache lines).
+// index, so there is no box loop and no distinct-page walk.
 //
 // What bounds it on the card: dependent global loads -- up to n_slots x w
-// candidate values per cell (the 100k-sphere field's tables are ~21 MB, so
-// they stay in the 50 MB L2, but lanes on different pages share no cache
-// lines), then the lid and the attributes -- and divergence between lanes
-// that march different cell counts or terminate at different depths; not
-// FLOPs.  This first version is deliberately simple: tables through the
-// read-only cache, nothing staged in shared memory, state in registers.
+// candidate values per cell (the 100k-sphere field's tables are ~21 MB and
+// stay in the 50 MB L2), then the lid and the attributes -- and divergence
+// between lanes that march different cell counts or terminate at different
+// depths; not FLOPs.  What the design does about it:
+// - the driver (ops/trace.py:_render_band_paged) sorts the lanes by page
+//   between launches and keeps only the live ones, so a warp's lanes read
+//   few pages and no block is launched for dead lanes; this kernel writes
+//   each lane's sort key (the Morton code of its page) in its epilogue, from
+//   the registers that hold the ray and the cell;
+// - the pixel sums live in a separate home-order accumulator, addressed by
+//   pixel (m * n_lanes + lane0): a pixel has one lane and is flushed once,
+//   so the add is the same f32 operation as a per-lane slot and needs no
+//   atomics, and the lane state the driver moves is 40 rows, not 120;
+// - the kernel is a template on the table layout (five values per slot,
+//   textured field), so the carried attributes have a compile-time count and
+//   live in registers, not in a stack frame.
 //
-// State: row-major [rows, n_pad] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy,
-// 8-10 thr, 11 t_best, 12 t_end, 13 t_nx, 14 t_nz, 15 bkey, 16 wcx, 17 wcz,
-// 18-20 cur, 21 + 3m + c acc[m], 21 + 3M + i carried attr i; int32 rows (u32
-// bits) 0 seed, 1 m, 2 sidx, 3 depth, 4 alive, 5 marching, 6 cell
-// (icx << 12 | icz), 7 lane0.  Output is written out of place.
+// State: row-major [rows, n] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy, 8-10
+// thr, 11 t_best, 12 t_end, 13 t_nx, 14 t_nz, 15 bkey, 16 wcx, 17 wcz, 18-20
+// cur, 21 + i carried attr i, padding to rf; int32 rows (u32 bits) 0 seed,
+// 1 m, 2 sidx, 3 depth, 4 alive, 5 marching, 6 cell (icx << 12 | icz),
+// 7 lane0.  Output is written out of place; the accumulator [p_total, 3] is
+// updated in place.
 #include <cuda_runtime.h>
 
 #include "wavefront.cuh"
@@ -44,11 +51,14 @@
 namespace {
 
 constexpr int R_TB = 11, R_TE = 12, R_TNX = 13, R_TNZ = 14, R_BKEY = 15;
-constexpr int R_WCX = 16, R_WCZ = 17, R_CUR = 18, R_ACC = 21;
+constexpr int R_WCX = 16, R_WCZ = 17, R_CUR = 18, R_ATT = 21;
 constexpr int U_MARCH = 5, U_CELL = 6, U_LANE0 = 7, U_ROWS = 8;
 constexpr float TAG = 8388608.0f;  // 2^23: bkey >= TAG is a global winner
-constexpr int MAX_CARRY = 10;  // (mat, c0.rgb, fuzz) + cy + (tex, c1.rgb)
 constexpr int BLOCK = 128;
+// sort keys beyond every Morton page code: a ray that misses the grid box,
+// and a dead lane (sorted last, then dropped)
+constexpr int KEY_MISS = 1 << 30, KEY_DEAD = 0x7fffffff;
+constexpr float KEY_BIG = 3.0e30f;  // the key's degenerate-slab bound
 
 // gscal slots (models/paged_grid.py P_*)
 constexpr int P_XLO = 0, P_XHI = 1, P_YLO = 2, P_YHI = 3, P_ZLO = 4, P_ZHI = 5;
@@ -65,23 +75,79 @@ struct PagedParams {
   const float* attrs;  // [pages, na * ab, 128]
   const float* fin;
   const int32_t* uin;
+  float* acc;  // [p_total, 3], home (pixel) order
   float* fout;
   int32_t* uout;
-  int n_g, five, textured, n_slots, ab;
-  int n_pad, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps;
+  int32_t* key;  // [n]: the next re-bucket's sort key
+  int n_g, n_slots, ab;
+  int n, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps;
   bool skip_tmax;
   rt::RR rr;
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
+// trace.py:_morton: interleave two page coordinates
+__device__ __forceinline__ int morton_part(int v) {
+  v = (v | (v << 8)) & 0x00F00F;
+  v = (v | (v << 4)) & 0x0C30C3;
+  v = (v | (v << 2)) & 0x249249;
+  return v;
+}
+__device__ __forceinline__ int morton(int sx, int sz) {
+  return morton_part(sx) | (morton_part(sz) << 1);
+}
+
+__device__ __forceinline__ void key_clip(float o, float d, float lo, float hi,
+                                         float& t0, float& t1) {
+  const float inv = 1.0f / d;
+  const float ta = (lo - o) * inv;
+  const float tb = (hi - o) * inv;
+  t0 = rt::jmin(ta, tb);
+  t1 = rt::jmax(ta, tb);
+  if (d == 0.0f) {
+    const bool inside = o >= lo && o <= hi;
+    t0 = inside ? -KEY_BIG : KEY_BIG;
+    t1 = inside ? KEY_BIG : -KEY_BIG;
+  }
+}
+
+// trace.py:_rebucket_key for one lane: a marching lane's page, a fresh
+// lane's page where its ray enters the grid box
+__device__ __forceinline__ int rebucket_key(const float* gs, bool alive, bool marching,
+                                            int cell, float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  if (!alive) return KEY_DEAD;
+  if (marching) return morton((cell >> 12) >> 3, (cell & 4095) >> 3);
+  float t0x, t1x, t0y, t1y, t0z, t1z;
+  key_clip(ox, dx, gs[P_XLO], gs[P_XHI], t0x, t1x);
+  key_clip(oy, dy, gs[P_YLO], gs[P_YHI], t0y, t1y);
+  key_clip(oz, dz, gs[P_ZLO], gs[P_ZHI], t0z, t1z);
+  const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, 1e-3f));
+  const float t_end = rt::jmin(rt::jmin(t1x, t1y), t1z);
+  if (!(t_start <= t_end)) return KEY_MISS;
+  const float pxw = ox + t_start * dx;
+  const float pzw = oz + t_start * dz;
+  const float icx = rt::jmin(rt::jmax(floorf((pxw - gs[P_FMINX]) * gs[P_INVS]), 0.0f),
+                             gs[P_FMAXX]);
+  const float icz = rt::jmin(rt::jmax(floorf((pzw - gs[P_FMINZ]) * gs[P_INVS]), 0.0f),
+                             gs[P_FMAXZ]);
+  return morton((int)icx >> 3, (int)icz >> 3);
+}
+
+template <bool FIVE, bool TEXTURED>
 __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParams P) {
+  constexpr int W = FIVE ? 4 : 3;  // values per candidate slot
+  constexpr int NA = (FIVE ? 6 : 5) + (TEXTURED ? 4 : 0);  // carried attrs
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= P.n_pad) return;
-  const int n = P.n_pad;
-  for (int r = 0; r < P.rf; ++r) P.fout[r * n + lane] = P.fin[r * n + lane];
-  for (int r = 0; r < U_ROWS; ++r) P.uout[r * n + lane] = P.uin[r * n + lane];
-  if (P.uin[rt::U_ALIVE * n + lane] == 0) return;
+  if (lane >= P.n) return;
+  const int n = P.n;
+  if (P.uin[rt::U_ALIVE * n + lane] == 0) {
+    for (int r = 0; r < P.rf; ++r) P.fout[r * n + lane] = P.fin[r * n + lane];
+    for (int r = 0; r < U_ROWS; ++r) P.uout[r * n + lane] = P.uin[r * n + lane];
+    P.key[lane] = KEY_DEAD;
+    return;
+  }
 
   const int spp = P.scal[rt::S_SPP];
   const uint32_t number = (uint32_t)P.scal[rt::S_NUMBER];
@@ -94,12 +160,8 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
   const int ifmaxx = (int)fmaxx, ifmaxz = (int)fmaxz;
   const float cy_u = gs[P_CY], inv_s = gs[P_INVS], cs = gs[P_S];
   const int nsczm = (int)gs[P_NSCZM];
-  const int w = P.five ? 4 : 3;
-  const int na = (P.five ? 6 : 5) + (P.textured ? 4 : 0);
-  const int geom_rows = w * P.n_slots;
-  const int attr_rows = na * P.ab;
-  const int a0 = R_ACC + 3 * P.m_slots;
-  float* acc = P.fout + R_ACC * n + lane;
+  const int geom_rows = W * P.n_slots;
+  const int attr_rows = NA * P.ab;
 
   float ox = P.fin[0 * n + lane], oy = P.fin[1 * n + lane], oz = P.fin[2 * n + lane];
   float dx = P.fin[3 * n + lane], dy = P.fin[4 * n + lane], dz = P.fin[5 * n + lane];
@@ -114,9 +176,9 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
   float cur_x = P.fin[(R_CUR + 0) * n + lane];
   float cur_y = P.fin[(R_CUR + 1) * n + lane];
   float cur_z = P.fin[(R_CUR + 2) * n + lane];
-  float att[MAX_CARRY];
+  float att[NA];
 #pragma unroll
-  for (int i = 0; i < MAX_CARRY; ++i) att[i] = i < na ? P.fin[(a0 + i) * n + lane] : 0.0f;
+  for (int i = 0; i < NA; ++i) att[i] = P.fin[(R_ATT + i) * n + lane];
   uint32_t seed = (uint32_t)P.uin[rt::U_SEED * n + lane];
   int mrow = P.uin[rt::U_M * n + lane];
   int sidx = P.uin[rt::U_SIDX * n + lane];
@@ -178,11 +240,11 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
       bool upd_any = false;
       int wslot = 0;
       for (int s = 0; s < P.n_slots; ++s) {
-        const int b0 = w * s;
+        const int b0 = W * s;
         const float s_cx = ld(gp + b0 * 128);
-        const float s_cy = P.five ? ld(gp + (b0 + 1) * 128) : cy_u;
-        const float s_cz = ld(gp + (b0 + w - 2) * 128);
-        const float s_kc = ld(gp + (b0 + w - 1) * 128);
+        const float s_cy = FIVE ? ld(gp + (b0 + 1) * 128) : cy_u;
+        const float s_cz = ld(gp + (b0 + W - 2) * 128);
+        const float s_kc = ld(gp + (b0 + W - 1) * 128);
         const float tc = rt::quadratic(q, s_cx, s_cy, s_cz, s_kc, P.skip_tmax);
         if (tc < t_b) {
           t_b = tc;
@@ -199,8 +261,7 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
         const int lid = (int)bkey & 511;
         const float* ap = P.attrs + page * attr_rows * 128 + (lid & 127);
 #pragma unroll
-        for (int v = 0; v < MAX_CARRY; ++v)
-          if (v < na) att[v] = ld(ap + (v * P.ab + (lid >> 7)) * 128);
+        for (int v = 0; v < NA; ++v) att[v] = ld(ap + (v * P.ab + (lid >> 7)) * 128);
       }
       const float dt_x = dx == 0.0f ? rt::BIG : fabsf(cs * inv_x);
       const float dt_z = dz == 0.0f ? rt::BIG : fabsf(cs * inv_z);
@@ -235,22 +296,16 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
       h.fuzz = ld(g + 13);
     } else {
       h.cenx = wcx;
-      h.ceny = P.five ? att[5] : cy_u;
+      h.ceny = FIVE ? att[FIVE ? 5 : 0] : cy_u;  // the center y of a varied field
       h.cenz = wcz;
       h.mat = att[0];
       h.c0x = att[1]; h.c0y = att[2]; h.c0z = att[3];
       h.fuzz = att[4];
-      h.tex = 0.0f; h.c1x = 0.0f; h.c1y = 0.0f; h.c1z = 0.0f;
-      if (P.textured) {  // tex, c1.rgb are the last four carried rows
-        const int t0 = na - 4;
-#pragma unroll
-        for (int v = 5; v < MAX_CARRY; ++v) {  // constant indices: registers
-          if (v == t0) h.tex = att[v];
-          if (v == t0 + 1) h.c1x = att[v];
-          if (v == t0 + 2) h.c1y = att[v];
-          if (v == t0 + 3) h.c1z = att[v];
-        }
-      }
+      // tex, c1.rgb are the last four carried attrs of a textured field
+      h.tex = TEXTURED ? att[NA - 4] : 0.0f;
+      h.c1x = TEXTURED ? att[NA - 3] : 0.0f;
+      h.c1y = TEXTURED ? att[NA - 2] : 0.0f;
+      h.c1z = TEXTURED ? att[NA - 1] : 0.0f;
     }
     const rt::Shade s = rt::shade(q, t_b, seed, h);
 
@@ -285,14 +340,16 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
     uint32_t seed_a = hit ? s.seed_h : seed;
     if (considered) seed_a = seed_rr;
 
-    // ---- flush the finished pixel's sum into its acc slot ---------------
+    // ---- flush the finished pixel's sum into its accumulator slot --------
     const bool more = term && sidx < spp;
     const bool pix_done = term && !more;
     if (pix_done) {
-      if (mrow >= 0 && mrow < P.m_slots) {
-        acc[(3 * mrow + 0) * n] += cur_x;
-        acc[(3 * mrow + 1) * n] += cur_y;
-        acc[(3 * mrow + 2) * n] += cur_z;
+      const int pix = mrow * P.n_lanes + lane0;
+      if (mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
+        float* a = P.acc + 3 * (size_t)pix;
+        a[0] = a[0] + cur_x;
+        a[1] = a[1] + cur_y;
+        a[2] = a[2] + cur_z;
       }
       cur_x = 0.0f;
       cur_y = 0.0f;
@@ -352,8 +409,8 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
   P.fout[(R_CUR + 1) * n + lane] = cur_y;
   P.fout[(R_CUR + 2) * n + lane] = cur_z;
 #pragma unroll
-  for (int i = 0; i < MAX_CARRY; ++i)
-    if (i < na) P.fout[(a0 + i) * n + lane] = att[i];
+  for (int i = 0; i < NA; ++i) P.fout[(R_ATT + i) * n + lane] = att[i];
+  for (int r = R_ATT + NA; r < P.rf; ++r) P.fout[r * n + lane] = P.fin[r * n + lane];
   P.uout[rt::U_SEED * n + lane] = (int32_t)seed;
   P.uout[rt::U_M * n + lane] = mrow;
   P.uout[rt::U_SIDX * n + lane] = sidx;
@@ -361,26 +418,37 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
   P.uout[rt::U_ALIVE * n + lane] = alive ? 1 : 0;
   P.uout[U_MARCH * n + lane] = marching ? 1 : 0;
   P.uout[U_CELL * n + lane] = cell;
+  P.uout[U_LANE0 * n + lane] = lane0;
+  P.key[lane] = rebucket_key(gs, alive, marching, cell, ox, oy, oz, dx, dy, dz);
 }
 
 }  // namespace
 
-// Launches one step on `stream`; returns cudaGetLastError() of the launch.
+// Launches one step over the n lanes of the state on `stream`; returns
+// cudaGetLastError() of the launch.
 extern "C" int rt_paged_megakernel_step(
     const int32_t* scal, const float* vpr, const float* gscal, const float* gtab,
     const float* geom, const float* lids, const float* attrs,
-    const float* fin, const int32_t* uin, float* fout, int32_t* uout,
-    int n_g, int five, int textured, int n_slots, int ab,
-    int n_pad, int rf, int m_slots, int n_lanes, int p_total, int width,
+    const float* fin, const int32_t* uin, float* acc, float* fout, int32_t* uout,
+    int32_t* key, int n_g, int five, int textured, int n_slots, int ab,
+    int n, int rf, int m_slots, int n_lanes, int p_total, int width,
     int max_depth, int k_steps, int skip_tmax,
     int rr_on, int rr_d0, int rr_d1, float rr_pmin, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  PagedParams P{scal, vpr, gscal, gtab, geom, lids, attrs, fin, uin, fout, uout,
-                n_g, five, textured, n_slots, ab,
-                n_pad, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps,
-                skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
-  const int grid = (n_pad + BLOCK - 1) / BLOCK;
-  paged_megakernel_step_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);
+  if (n == 0) return 0;
+  PagedParams P{scal, vpr, gscal, gtab, geom, lids, attrs, fin, uin, acc, fout, uout,
+                key, n_g, n_slots, ab, n, rf, m_slots, n_lanes, p_total, width,
+                max_depth, k_steps, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (five && textured)
+    paged_megakernel_step_kernel<true, true><<<grid, BLOCK, 0, st>>>(P);
+  else if (five)
+    paged_megakernel_step_kernel<true, false><<<grid, BLOCK, 0, st>>>(P);
+  else if (textured)
+    paged_megakernel_step_kernel<false, true><<<grid, BLOCK, 0, st>>>(P);
+  else
+    paged_megakernel_step_kernel<false, false><<<grid, BLOCK, 0, st>>>(P);
   return (int)cudaGetLastError();
 }

@@ -130,11 +130,15 @@ __device__ __forceinline__ float quadratic(const RayTerms& q, float cx, float cy
   float b = q.od - cd;
   float c = q.oo - 2.0f * co + kc;
   float disc = b * b - q.a * c;
-  float sq = sqrtf(disc);  // NaN on a miss: every comparison below is false
+  // A miss (disc < 0 or NaN) takes sqrt(0), not the IEEE root's slow path
+  // for a negative input, and fails both checks through `ok`: the same bits
+  // as sqrt(disc)'s NaN failing every comparison (and sqrt(-0) is -0).
+  const bool ok = disc >= 0.0f;
+  float sq = sqrtf(ok ? disc : 0.0f);
   float t1 = (-b - sq) * q.inv_a;
   float t2 = (-b + sq) * q.inv_a;
-  bool t1_ok = skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX);
-  bool t2_ok = skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX);
+  bool t1_ok = ok && (skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX));
+  bool t2_ok = ok && (skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX));
   return t1_ok ? t1 : (t2_ok ? t2 : BIG);
 }
 

@@ -1,8 +1,8 @@
 """Brute-force wavefront megakernel: ``k_steps`` iterations per launch.
 
 Port of ``raytrace_tpu/ops/megakernel.py`` (``megakernel_step``).  One launch
-runs ``k_steps`` wavefront iterations for every lane: closest hit over every
-row of the packed sphere table (lowest index wins ties), the winner's
+runs ``k_steps`` wavefront iterations for every lane: closest hit over the
+valid rows of the packed sphere table (lowest index wins ties), the winner's
 attributes, shader.rchit shading with speculative RNG draws, termination into
 the lane's M accumulator slots, and regeneration with a TEA reseed and a new
 camera ray.  It is the grid kernel's exactness anchor and the backend for
@@ -30,6 +30,7 @@ from .intersect import BIG
 from .shading_rows import norm3, shade_rows
 
 K_STEPS = 10  # wavefront iterations per launch
+STAGED = False  # the CUDA kernel reads the table rows from shared-memory tiles
 
 # f32 state rows
 R_O, R_D, R_FX, R_FY, R_THR, R_ACC = 0, 3, 6, 7, 8, 12
@@ -121,17 +122,25 @@ def _rr_args(rr):
 
 def megakernel_step(scal, vpr, table, atab, fstate, ustate, *, m_slots,
                     n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
-                    skip_tmax=False, rr=None):
+                    skip_tmax=False, rr=None, n_valid=None):
     """``k_steps`` brute-force wavefront iterations over all lanes.
 
     table [S, 24] f32 (ops/intersect.sphere_table), atab [16, S] f32 (its
     columns 8..23 transposed); fstate [f_rows(M), n] f32, ustate [8, n]
-    int32.  Returns new (fstate, ustate).  CUDA tensors launch the kernel;
-    CPU tensors run ``megakernel_step_plain``."""
+    int32.  ``n_valid``: the scene's sphere count, the table's valid prefix
+    (None: all S rows); the rows after it are padding that cannot win, so
+    scanning only the prefix changes no bit.  Returns new (fstate, ustate).
+    CUDA tensors launch the kernel; CPU tensors run
+    ``megakernel_step_plain``."""
     rf = f_rows(m_slots)
     _check_state(fstate, ustate, rf, U_ROWS)
+    s_rows = table.shape[0]
+    n_valid = s_rows if n_valid is None else int(n_valid)
+    if not 0 <= n_valid <= s_rows:
+        raise ValueError(f"n_valid {n_valid} outside the table's {s_rows} rows")
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
-              max_depth=max_depth, k_steps=k_steps, skip_tmax=skip_tmax, rr=rr)
+              max_depth=max_depth, k_steps=k_steps, skip_tmax=skip_tmax, rr=rr,
+              n_valid=n_valid)
     if fstate.device.type == "cpu":
         return megakernel_step_plain(scal, vpr, table, atab, fstate, ustate, **kw)
     if fstate.device.type != "cuda":
@@ -143,18 +152,19 @@ def megakernel_step(scal, vpr, table, atab, fstate, ustate, *, m_slots,
         dict(scal=scal, vpr=vpr, table=table, atab=atab, fstate=fstate, ustate=ustate),
         dict(scal=i32, vpr=f32, table=f32, atab=f32, fstate=f32, ustate=i32),
         fstate.device)
-    s_rows = table.shape[0]
     if table.shape != (s_rows, 24) or atab.shape != (16, s_rows):
         raise ValueError(f"table {tuple(table.shape)} / atab {tuple(atab.shape)}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (rows are read as float4)")
     if scal.numel() < 8 or vpr.numel() < 24:
         raise ValueError("scal must hold 8 int32 and vpr 24 float32 values")
     fout = torch.empty_like(fstate)
     uout = torch.empty_like(ustate)
     n_pad = fstate.shape[1]
     err = _build.library().rt_megakernel_step(
-        *ptrs[:4], ptrs[4], ptrs[5], fout.data_ptr(), uout.data_ptr(),
-        s_rows, n_pad, rf, m_slots, n_lanes, p_total, width, max_depth,
-        k_steps, int(bool(skip_tmax)), *_rr_args(rr),
+        *ptrs, fout.data_ptr(), uout.data_ptr(),
+        s_rows, n_valid, n_pad, rf, m_slots, n_lanes, p_total, width, max_depth,
+        k_steps, int(bool(skip_tmax)), *_rr_args(rr), int(STAGED),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: {_build.error_string(err)}")
@@ -177,11 +187,15 @@ def count_work(work, **counts):
 
 def megakernel_step_plain(scal, vpr, table, atab, fstate, ustate, *, m_slots,
                           n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
-                          skip_tmax=False, rr=None, work=None):
+                          skip_tmax=False, rr=None, n_valid=None, work=None):
     """The plain torch version of ``megakernel_step``: the JAX ``_iterate``
-    vectorized over lanes, with the same operand order as the CUDA kernel.
-    ``work``: optional dict that receives the counts of ``count_work``."""
+    vectorized over lanes, with the same operand order as the CUDA kernel,
+    over the first ``n_valid`` table rows (None: all).  ``work``: optional
+    dict that receives the counts of ``count_work``."""
     megakernel_step_plain.launches += 1
+    if n_valid is not None:
+        rows = max(n_valid, 1)  # row 0 of an empty scene is padding: a miss
+        table, atab = table[:rows], atab[:, :rows]
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()

@@ -16,20 +16,24 @@ regenerate -- over the paged two-level grid of models/paged_grid.py:
 The JAX kernel's per-128-lane page-box loops (``_page_fetch``,
 ``_ab_select``) are Mosaic lane-gather machinery; here each lane reads only
 where its mask is set (``marching`` for geometry, "winner improved" for lids
-and attributes), exactly the values the box loop selects for it.  The driver
-(``ops/trace.py:_render_band_paged``) re-buckets lanes by page between
-launches; pixel identity rides in the ``U_LANE0`` row.
+and attributes), exactly the values the box loop selects for it.
+
+The pixel sums do not ride in the lane state: a finished pixel's sum is added
+into a separate [p_total, 3] f32 accumulator in home (pixel) order, at pixel
+``m * n_lanes + lane0``, in place.  The driver (``ops/trace.py:
+_render_band_paged``) sorts the lanes by page and drops the dead ones between
+launches; pixel identity rides in the ``U_LANE0`` row, and each step returns
+the next sort key of every lane (``trace._rebucket_key`` of its output).
 
 ``paged_megakernel_step`` launches the hand-written CUDA kernel
 (``csrc/pagedkernel.cu``) for CUDA state and the plain torch version
 ``paged_megakernel_step_plain`` for CPU state; each counts its launches in its
 ``launches`` attribute.
 
-State layout (rows of [rows, lanes] tensors; M = pixels_per_lane, nc carried
-attribute rows):
+State layout (rows of [rows, lanes] tensors; na carried attribute rows):
   f32:  0-2 o | 3-5 d | 6 fx | 7 fy | 8-10 thr | 11 t_best | 12 t_end
         | 13 t_nx | 14 t_nz | 15 bkey | 16 wcx | 17 wcz | 18-20 cur.rgb
-        | 21+3m+c acc[m].rgb | 21+3M+i carried attr i | pad to 8 rows
+        | 21+i carried attr i | pad to 8 rows
   int32 (u32 bits): 0 seed | 1 m | 2 sidx | 3 depth | 4 alive | 5 marching
         | 6 cell (icx << 12 | icz) | 7 lane0
 bkey: (sx*32 + sz)*512 + lid for grid winners (page coords and page-local
@@ -59,7 +63,7 @@ _TAG = float(np.float32(8388608.0))  # 2^23: bkey >= _TAG is a global winner
 R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
 R_TB, R_TE, R_TNX, R_TNZ, R_BKEY = 11, 12, 13, 14, 15
 R_WCX, R_WCZ = 16, 17  # the winning grid candidate's center (x, z)
-R_CUR, R_ACC = 18, 21
+R_CUR, R_ATT = 18, 21  # running pixel sum; the carried attrs
 U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH = range(6)
 U_CELL, U_LANE0 = 6, 7
 U_ROWS = 8
@@ -75,10 +79,9 @@ def n_carry(five: bool, textured: bool) -> int:
     return (6 if five else 5) + (4 if textured else 0)
 
 
-def pf_rows(m_slots: int, nc: int = 0) -> int:
-    """f32 state rows incl. ``nc`` carried attr rows after the acc slots."""
-    r = R_ACC + 3 * m_slots + nc
-    return -(-r // 8) * 8
+def pf_rows(nc: int) -> int:
+    """f32 state rows incl. ``nc`` carried attr rows."""
+    return -(-(R_ATT + nc) // 8) * 8
 
 
 def scaled_k(n_lanes: int) -> int:
@@ -102,23 +105,26 @@ def layout(paged):
     return five, textured, n_slots, w, na, paged.attrs.shape[1] // na
 
 
-def paged_megakernel_step(scal, vpr, paged, fstate, ustate, *, m_slots,
+def paged_megakernel_step(scal, vpr, paged, fstate, ustate, acc, *, m_slots,
                           n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
                           skip_tmax=False, rr=None):
-    """``k_steps`` paged-grid wavefront iterations over all lanes.
+    """``k_steps`` paged-grid wavefront iterations over the state's lanes.
 
     ``paged``: PagedGridTables of torch tensors on the state's device (no
-    ``govf``).  fstate [pf_rows(M, na), n] f32 (na carried attr rows),
-    ustate [8, n] int32.  Returns
-    new (fstate, ustate).  CUDA tensors launch the kernel; CPU tensors run
-    ``paged_megakernel_step_plain``."""
+    ``govf``).  fstate [pf_rows(na), n] f32 (na carried attr rows), ustate
+    [8, n] int32, any n; ``acc`` [p_total, 3] f32, the band's pixel sums in
+    home order, updated in place.  Returns new (fstate, ustate, key): key
+    [n] int32 is ``trace._rebucket_key`` of the new state.  CUDA tensors
+    launch the kernel; CPU tensors run ``paged_megakernel_step_plain``."""
     five, textured, n_slots, w, na, ab = layout(paged)
-    rf = pf_rows(m_slots, na)
+    rf = pf_rows(na)
     _check_state(fstate, ustate, rf, U_ROWS)
+    if acc.shape != (p_total, 3) or acc.dtype != torch.float32:
+        raise ValueError(f"acc {tuple(acc.shape)} {acc.dtype}, want ({p_total}, 3) float32")
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
               max_depth=max_depth, k_steps=k_steps, skip_tmax=skip_tmax, rr=rr)
     if fstate.device.type == "cpu":
-        return paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, **kw)
+        return paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, **kw)
     if fstate.device.type != "cuda":
         raise ValueError(f"unsupported device {fstate.device}")
     from .. import _build
@@ -136,30 +142,31 @@ def paged_megakernel_step(scal, vpr, paged, fstate, ustate, *, m_slots,
     f32, i32 = torch.float32, torch.int32
     ptrs = _cuda_args(
         dict(scal=scal, vpr=vpr, gscal=g.gscal, gtab=g.gtab, geom=g.geom,
-             lids=g.lids, attrs=g.attrs, fstate=fstate, ustate=ustate),
+             lids=g.lids, attrs=g.attrs, fstate=fstate, ustate=ustate, acc=acc),
         dict(scal=i32, vpr=f32, gscal=f32, gtab=f32, geom=f32, lids=f32,
-             attrs=f32, fstate=f32, ustate=i32),
+             attrs=f32, fstate=f32, ustate=i32, acc=f32),
         fstate.device)
     fout = torch.empty_like(fstate)
     uout = torch.empty_like(ustate)
-    n_pad = fstate.shape[1]
+    n = fstate.shape[1]
+    key = torch.empty(n, dtype=torch.int32, device=fstate.device)
     err = _build.library().rt_paged_megakernel_step(
-        *ptrs, fout.data_ptr(), uout.data_ptr(),
+        *ptrs, fout.data_ptr(), uout.data_ptr(), key.data_ptr(),
         g.gtab.shape[0], int(five), int(textured), n_slots, ab,
-        n_pad, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps,
+        n, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps,
         int(bool(skip_tmax)), *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged kernel launch failed: {_build.error_string(err)}")
     paged_megakernel_step.launches += 1
-    return fout, uout
+    return fout, uout, key
 
 
 paged_megakernel_step.launches = 0
 
 
-def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, *, m_slots,
-                                n_lanes, p_total, width, max_depth,
+def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
+                                m_slots, n_lanes, p_total, width, max_depth,
                                 k_steps=K_STEPS, skip_tmax=False, rr=None,
                                 work=None):
     """The plain torch version of ``paged_megakernel_step``: the JAX
@@ -168,12 +175,13 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, *, m_slots,
     (page, row, fc), read where the JAX box loop would select them.
     ``work``: optional dict that receives the counts of
     ``megakernel.count_work``."""
+    from .trace import _rebucket_key
+
     paged_megakernel_step_plain.launches += 1
     five, textured, n_slots, w, na, ab = layout(paged)
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()
-    a0 = R_ACC + 3 * m_slots  # carried attr rows live after the acc slots
     sc = [int(x) for x in scal.reshape(-1)[:8].tolist()]
     spp, number = sc[S_SPP], sc[S_NUMBER] & rngops.MASK
     y0, seed_y0, offx = sc[S_Y0], sc[S_SEEDY0], sc[S_OFFX]
@@ -195,7 +203,7 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, *, m_slots,
     t_b, t_end, t_nx, t_nz, bkey, wcx, wcz = (
         f[r] for r in (R_TB, R_TE, R_TNX, R_TNZ, R_BKEY, R_WCX, R_WCZ))
     cur = [f[R_CUR + i] for i in range(3)]
-    att = [f[a0 + i] for i in range(na)]
+    att = [f[R_ATT + i] for i in range(na)]
     seed = rngops.to_u32(u[U_SEED])
     mrow = u[U_M].to(torch.int64)
     sidx = u[U_SIDX].to(torch.int64)
@@ -365,15 +373,16 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, *, m_slots,
         if rr is not None:
             seed_a = torch.where(considered, seed_rr, seed_a)
 
-        # ---- flush the finished pixel's sum into its acc slot --------------
+        # ---- flush the finished pixel's sum into its accumulator slot -----
         more = term & (sidx < spp)
         pix_done = term & ~more
-        if bool(pix_done.any()):
-            for m in range(m_slots):
-                sel = pix_done & (mrow == m)
-                for ch in range(3):
-                    r = R_ACC + 3 * m + ch
-                    f[r] = f[r] + torch.where(sel, cur[ch], 0.0)
+        pix = mrow * n_lanes + lane0
+        flush = pix_done & (mrow >= 0) & (mrow < m_slots) & (pix < p_total)
+        if work is not None:
+            count_work(work, flushes=flush.sum())
+        if bool(flush.any()):  # one lane per pixel: the indices are distinct
+            idx = pix[flush]
+            acc[idx] = acc[idx] + torch.stack(cur, dim=1)[flush]
         cur = [torch.where(pix_done, 0.0, cv) for cv in cur]
 
         # ---- regen, addressed by lane0 (lanes get re-bucketed) -------------
@@ -410,17 +419,17 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, *, m_slots,
         depth = torch.where(cont_b, depth + 1, torch.where(regen, 0, depth))
         alive = marching | (seg_done & (cont_b | regen))
 
-    for r, v in zip(range(R_ACC), (ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_,
+    for r, v in zip(range(R_ATT), (ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_,
                                    tz_, t_b, t_end, t_nx, t_nz, bkey, wcx, wcz,
                                    *cur)):
         f[r] = v
     for i in range(na):
-        f[a0 + i] = att[i]
+        f[R_ATT + i] = att[i]
     u[U_SEED] = rngops.to_i32(seed)
     for r, v in ((U_M, mrow), (U_SIDX, sidx), (U_DEPTH, depth), (U_ALIVE, alive),
                  (U_MARCH, marching), (U_CELL, cell)):
         u[r] = v.to(torch.int32)
-    return f, u
+    return f, u, _rebucket_key(f, u, paged.gscal)
 
 
 paged_megakernel_step_plain.launches = 0

@@ -20,7 +20,8 @@ Backends:
   wavefront step (``ops/megakernel.py`` brute force, ``ops/gridkernel.py``
   grid DDA) until no lane is alive, then the accumulator is unpacked.
 - ``paged``: the same loop over the paged-grid step (``ops/pagedkernel.py``)
-  with the lanes re-bucketed by page before every launch
+  with the live lanes sorted by page and compacted before every launch, and
+  the pixel sums in a separate home-order accumulator
   (``_render_band_paged``).
 
 Each kernel wrapper decides between its CUDA kernel and its plain torch
@@ -442,7 +443,7 @@ def _state_module(scene, backend, m_slots):
 
     if backend == "paged":
         na = pagedkernel.layout(scene.paged)[4]  # carried attr rows
-        return pagedkernel, pagedkernel.pf_rows(m_slots, na)
+        return pagedkernel, pagedkernel.pf_rows(na)
     mk = gridkernel if backend == "grid" else megakernel
     return mk, mk.f_rows(m_slots)
 
@@ -455,7 +456,8 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     Returns (fstate [rows, n_pad] f32, ustate [U_ROWS, n_pad] int32
     holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
     Slot 0 of lane k is pixel k; ``paged`` state also holds k in its
-    ``U_LANE0`` row.  The first camera ray comes from the kernels' own
+    ``U_LANE0`` row and has no accumulator rows (``home_accum`` makes its
+    accumulator, and ``accum_init`` raises).  The first camera ray comes from the kernels' own
     ``camera_rays_rows``, so every sample of the kernel path is generated by
     one formula and the image is bit-identical for any M.  (The JAX drivers
     use the spec ``_camera_rays`` here; XLA rewrites both normalizations to
@@ -484,6 +486,9 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     fstate[mk.R_FY] = fy0
     fstate[mk.R_THR : mk.R_THR + 3] = 1.0
     if accum_init is not None:
+        if backend == "paged":
+            raise ValueError("paged state has no accumulator rows: pass "
+                             "accum_init to home_accum")
         flat = accum_init.reshape(p_total, 3).to(torch.float32)
         pad = n * m_slots - p_total
         if pad:
@@ -511,18 +516,23 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     return fstate, ustate, scal, vpr, geom
 
 
-def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total,
-                 ustate=None):
-    """The accumulator rows of a finished state -> [band_h, width, 3].
-    ``paged`` state needs its ``ustate``: the lanes are put back in logical
-    order by their ``U_LANE0`` row first."""
-    from . import gridkernel, megakernel, pagedkernel
+def home_accum(accum_init, p_total, device) -> torch.Tensor:
+    """The paged band's pixel sums [p_total, 3] f32 in home (pixel) order:
+    ``accum_init`` copied, or zeros.  The paged step adds each finished
+    pixel's sum into its row in place; the rows are never permuted."""
+    if accum_init is None:
+        return torch.zeros((p_total, 3), dtype=torch.float32, device=device)
+    return accum_init.reshape(p_total, 3).to(device=device, dtype=torch.float32,
+                                             copy=True)
 
-    mk = {"grid": gridkernel, "paged": pagedkernel}.get(backend, megakernel)
+
+def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total):
+    """The accumulator rows of a finished mega / grid state ->
+    [band_h, width, 3]."""
+    from . import gridkernel, megakernel
+
+    mk = gridkernel if backend == "grid" else megakernel
     acc = fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots]
-    if backend == "paged":
-        inv = torch.argsort(ustate[mk.U_LANE0], stable=True)
-        acc = acc.index_select(1, inv)
     return (acc[:, :n_lanes]
             .reshape(m_slots, 3, n_lanes)
             .permute(0, 2, 1)
@@ -547,17 +557,20 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
         scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
         seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
         accum_init=accum_init, pixels_per_lane=pixels_per_lane)
-    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr)
+    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
+                  k_steps=mk.K_STEPS)
     if backend == "grid":
         def step(f, u):
             return gridkernel.grid_megakernel_step(
                 scal, vpr, scene.grid, f, u, **common)
     else:
         atab = scene.table[:, 8:24].T.contiguous()
+        # the valid rows are the table's prefix (prepare_scene)
+        n_valid = int(scene.valid.sum())
 
         def step(f, u):
             return megakernel.megakernel_step(
-                scal, vpr, scene.table, atab, f, u, **common)
+                scal, vpr, scene.table, atab, f, u, n_valid=n_valid, **common)
 
     while bool((ustate[mk.U_ALIVE] != 0).any()):
         fstate, ustate = step(fstate, ustate)
@@ -576,11 +589,22 @@ def _morton(sx, sz):
     return part(sx) | (part(sz) << 1)
 
 
+# sort keys beyond every Morton page code (6-bit page coordinates interleave
+# to codes up to ~2^17): a fresh ray that misses the grid box, a dead lane
+KEY_MISS = 1 << 30
+KEY_DEAD = 2**31 - 1
+
+
 def _rebucket_key(fstate, ustate, gscal):
-    """Sort key of each lane (JAX ``_pred_page``, Morton mode): a marching
-    lane's current page, a fresh lane's page where its ray enters the grid
-    box (4096 if it misses the box), 4097 for dead lanes.  Pages are keyed
-    at 8x8 fine cells, finer than the kernel's 8x16 pages."""
+    """Sort key of each lane, int32 (JAX ``_pred_page``, Morton mode): a
+    marching lane's current page, a fresh lane's page where its ray enters
+    the grid box, ``KEY_MISS`` if it misses the box, ``KEY_DEAD`` for dead
+    lanes, so they sort last.  Pages are keyed at 8x8 fine cells, finer than
+    the kernel's 8x16 pages.  (The JAX key's 4096 / 4097 sentinels fall
+    among the page codes of a large grid; there they only order lanes, here
+    they decide which lanes are kept.)  The paged kernel computes the same
+    key in its epilogue; this is its plain version and the first launch's
+    key."""
     from . import pagedkernel as pk
 
     gs = gscal.reshape(-1)
@@ -619,15 +643,21 @@ def _rebucket_key(fstate, ustate, gscal):
     hits_box = t_start <= t_end
     page_p = _morton(torch.where(hits_box, icx, 0.0).to(torch.int64) >> 3,
                      torch.where(hits_box, icz, 0.0).to(torch.int64) >> 3)
-    page_p = torch.where(hits_box, page_p, 4096)
+    page_p = torch.where(hits_box, page_p, KEY_MISS)
     key = torch.where(marching, page_m, page_p)
-    return torch.where(alive, key, 4097)
+    return torch.where(alive, key, KEY_DEAD).to(torch.int32)
 
 
-def rebucket(fstate, ustate, gscal):
-    """Re-sort the lanes by page (stable argsort of ``_rebucket_key``) so a
-    warp's lanes read few pages; the image does not depend on the order."""
-    perm = torch.argsort(_rebucket_key(fstate, ustate, gscal), stable=True)
+def live_order(key):
+    """The live lanes (key != KEY_DEAD) sorted by key, stable: [n_live]
+    int64 indices.  Reading n_live is the driver's one host sync per
+    launch."""
+    perm = torch.argsort(key, stable=True)
+    return perm[: int((key != KEY_DEAD).sum())]
+
+
+def gather_lanes(fstate, ustate, perm):
+    """The state's lanes ``perm``, in that order, into new tensors."""
     return fstate.index_select(1, perm), ustate.index_select(1, perm)
 
 
@@ -635,23 +665,29 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
                        spp, number, accum_init, max_depth, pixels_per_lane,
                        skip_tmax, rr=None):
     """Paged-grid driver (JAX ``_render_band_paged``, Morton key, carried
-    winner attributes): before every launch of ``scaled_k(n)`` iterations
-    the lanes are re-bucketed by page; pixel identity rides in ``U_LANE0``
-    and the accumulator is put back in lane order at the end."""
+    winner attributes).  Before every launch of ``scaled_k(n)`` iterations
+    the live lanes are sorted by page and gathered into the next launch's
+    state, which holds only them, so no block runs for dead lanes; the step
+    emits the next key.  Pixel identity rides in ``U_LANE0``, and the pixel
+    sums stay in home order in ``acc``, so nothing is put back at the end."""
     from . import pagedkernel
 
     if scene.paged is None:
-        raise ValueError("paged backend requires paged-grid tables")
+        raise ValueError("paged backend requires a paged-grid-able scene")
     g = scene.paged
     fstate, ustate, scal, vpr, geom = pack_state(
         scene, vp, backend="paged", band_h=band_h, width=width, y0=y0,
         seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
-        accum_init=accum_init, pixels_per_lane=pixels_per_lane)
+        pixels_per_lane=pixels_per_lane)
+    acc = home_accum(accum_init, geom["p_total"], fstate.device)
     k = pagedkernel.scaled_k(geom["n_lanes"])
     common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k)
-    while bool((ustate[pagedkernel.U_ALIVE] != 0).any()):
-        fstate, ustate = rebucket(fstate, ustate, g.gscal)
-        fstate, ustate = pagedkernel.paged_megakernel_step(
-            scal, vpr, g, fstate, ustate, **common)
-    return unpack_accum(fstate, backend="paged", band_h=band_h, ustate=ustate,
-                        **geom)
+    key = _rebucket_key(fstate, ustate, g.gscal)
+    while True:
+        perm = live_order(key)
+        if perm.numel() == 0:
+            break
+        fstate, ustate = gather_lanes(fstate, ustate, perm)
+        fstate, ustate, key = pagedkernel.paged_megakernel_step(
+            scal, vpr, g, fstate, ustate, acc, **common)
+    return acc.reshape(band_h, width, 3)

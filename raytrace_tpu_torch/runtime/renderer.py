@@ -17,7 +17,6 @@ import torch
 
 from ..config import RenderConfig
 from ..models.camera import Camera
-from ..models.paged_grid import build_paged_grid
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
 from ..ops.trace import (_TODO_BALANCE, _TODO_MERGE, DeviceScene,
@@ -101,13 +100,8 @@ class Renderer:
         self.config = config
         self.device = render_device(device)
         self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
-        prepared = prepare_scene(self.scene)
-        if config.backend == "paged" and prepared.paged is None:
-            # asked for by name on a scene the flat grid holds: build the
-            # paged tables too (None if the scene fits neither)
-            prepared = prepared._replace(
-                paged=build_paged_grid(self.scene, prepared.table))
-        self.device_scene = device_scene_from_numpy(prepared, self.device)
+        self.device_scene = device_scene_from_numpy(prepare_scene(self.scene),
+                                                    self.device)
         self.backend = resolve_backend(config.backend, self.device_scene)
         w, h = config.width, config.height
         if config.pixels_per_lane is not None:

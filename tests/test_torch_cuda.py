@@ -13,8 +13,10 @@ sequence (nvcc --fmad=false, no fast math; CUDA's sinf on both sides).
 The cases cover what the smoke run does not: the 5-value slot layout, the
 textured-field ``ttab`` path, pitch 2's wider 4-value cells, fast mode, a
 carried accumulator and tables larger than one 512-row block; for the paged
-kernel the varied-height and textured page layouts and re-bucketed lanes;
-for the fused intersect kernel a table of several shared-memory chunks.
+kernel all four instances of its template (varied-height and textured page
+layouts) on the driver's sorted and compacted lanes, its home-order
+accumulator and the sort key it emits; for the fused intersect kernel a
+table of several shared-memory chunks.
 """
 
 import pytest
@@ -90,19 +92,24 @@ def test_grid_kernel_matches_plain(cuda, name, rr):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("staged", [False, True], ids=["ldg", "smem"])
 @pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
 @pytest.mark.parametrize("name", ["book", "three_sphere", "field2000"])
-def test_megakernel_matches_plain(cuda, name, rr):
+def test_megakernel_matches_plain(cuda, name, rr, staged, monkeypatch):
     scene = {"book": lambda: generate_random_scene(0.0),
              "three_sphere": three_sphere_scene,
              # 2048-row table: more than one 512-row block
              "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0)}[name]()
+    monkeypatch.setattr(megakernel, "STAGED", staged)
     ds = trace.device_scene_from_numpy(trace.prepare_scene(scene), cuda)
     accum = torch.rand((72, 128, 3), device=cuda)
     f, u, scal, vpr, geom = _state(ds, "mega", accum=accum)
     atab = ds.table[:, 8:24].T.contiguous()
+    # the kernel scans the valid prefix, the plain version every row
+    n_valid = int(ds.valid.sum())
     kw = dict(geom, max_depth=50, skip_tmax=False, rr=rr)
-    step_k = lambda f_, u_: megakernel.megakernel_step(scal, vpr, ds.table, atab, f_, u_, **kw)
+    step_k = lambda f_, u_: megakernel.megakernel_step(scal, vpr, ds.table, atab, f_, u_,
+                                                        n_valid=n_valid, **kw)
     step_p = lambda f_, u_: megakernel.megakernel_step_plain(scal, vpr, ds.table, atab, f_, u_, **kw)
     for _ in range(3):
         out_k, out_p = _launch_pair(step_k, step_p, f, u)
@@ -165,17 +172,31 @@ FIELDS = {
 @pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_paged_kernel_matches_plain(cuda, name, rr):
+    """Each (five, textured) instance of the kernel's template, on the
+    driver's sorted and compacted live lanes (lane0 != lane, fewer lanes
+    than the band has): the state, the accumulator and the emitted key row
+    (== ``_rebucket_key`` of the new state) equal the plain version's."""
     ds = trace.device_scene_from_numpy(trace.prepare_scene(_field(**FIELDS[name])), cuda)
     assert ds.paged is not None
-    f, u, scal, vpr, geom = _state(ds, "paged", accum=torch.rand((72, 128, 3), device=cuda))
+    f, u, scal, vpr, geom = _state(ds, "paged")
+    acc = trace.home_accum(torch.rand((72, 128, 3), device=cuda), geom["p_total"], cuda)
     kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr, k_steps=10)
-    step_k = lambda f_, u_: pagedkernel.paged_megakernel_step(scal, vpr, ds.paged, f_, u_, **kw)
-    step_p = lambda f_, u_: pagedkernel.paged_megakernel_step_plain(scal, vpr, ds.paged, f_, u_, **kw)
-    for _ in range(3):  # re-bucketed like the driver: lane0 != lane
-        f, u = trace.rebucket(f, u, ds.paged.gscal)
-        out_k, out_p = _launch_pair(step_k, step_p, f, u)
-        _assert_same(out_k, out_p)
-        f, u = out_k
+    key = trace._rebucket_key(f, u, ds.paged.gscal)
+    acc0 = acc.clone()
+    for _ in range(4):
+        f, u = trace.gather_lanes(f, u, trace.live_order(key))
+        acc_k, acc_p = acc.clone(), acc.clone()
+        fk, uk, key = pagedkernel.paged_megakernel_step(scal, vpr, ds.paged, f, u, acc_k, **kw)
+        fp, up, key_p = pagedkernel.paged_megakernel_step_plain(
+            scal, vpr, ds.paged, f, u, acc_p, **kw)
+        torch.cuda.synchronize()
+        _assert_same((fk, uk), (fp, up))
+        assert torch.equal(key, key_p)
+        assert torch.equal(key, trace._rebucket_key(fk, uk, ds.paged.gscal))
+        assert torch.equal(acc_k, acc_p)
+        f, u, acc = fk, uk, acc_k
+    assert not torch.equal(acc, acc0)  # pixels were flushed
+    assert f.shape[1] < geom["n_lanes"]  # dead lanes were dropped
 
 
 @pytest.mark.gpu

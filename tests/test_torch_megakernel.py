@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from raytrace_tpu.ops import megakernel as jmega
-from raytrace_tpu_torch.models.scene import generate_random_scene, three_sphere_scene
+from raytrace_tpu_torch.models.scene import (generate_random_scene, random_sphere_field,
+                                             three_sphere_scene)
 from raytrace_tpu_torch.ops import megakernel, trace
 from raytrace_tpu_torch.runtime.renderer import reference_camera
 
@@ -140,6 +141,38 @@ def test_mega_near_spec_path_book(book):
     bf = _render(book, "bruteforce", 24, 14, spp=2, depth=12, m=1)
     mg = _render(book, "mega", 24, 14, spp=2, depth=12, m=3)
     assert int((np.abs(mg - bf).max(axis=2) > 1e-4).sum()) <= 3
+
+
+@pytest.mark.parametrize("name", ["book", "three_sphere"])
+def test_valid_prefix_scan_equals_padded_scan(book, name):
+    """The step over the table's valid prefix (what the CUDA kernel scans)
+    equals the step over every padded row bit for bit: a padding row
+    (kc = 3e30) can never win."""
+    ds_np = book if name == "book" else trace.prepare_scene(three_sphere_scene())
+    n_valid = int(ds_np.valid.sum())
+    assert n_valid < ds_np.table.shape[0]  # 488 of 512 rows; 4 of 128
+    ds, f, u, scal, vpr, kw = _packed(ds_np, 32, 18, 2, 128)
+    atab = ds.table[:, 8:24].T.contiguous()
+    out = [megakernel.megakernel_step_plain(scal, vpr, ds.table, atab, f, u,
+                                            n_valid=nv, **kw)
+           for nv in (n_valid, None)]
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0], out[1][0])
+
+
+def test_mega_render_scans_only_the_valid_rows():
+    """154 spheres in a 256-row table, a count that is no multiple of a
+    block or a table tile: the driver scans the valid prefix, and the image
+    equals the one from a scan of every row (``valid`` all true) and is
+    the same for any pixels-per-lane."""
+    ds_np = trace.prepare_scene(random_sphere_field(150, seed=2, extent=7.0))
+    assert int(ds_np.valid.sum()) == 154 and ds_np.table.shape[0] == 256
+    every_row = ds_np._replace(valid=np.ones_like(ds_np.valid))
+    before = megakernel.megakernel_step_plain.launches
+    img = _render(ds_np, "mega", 32, 18, spp=2, depth=6, m=2)
+    assert megakernel.megakernel_step_plain.launches > before
+    assert np.array_equal(img, _render(every_row, "mega", 32, 18, spp=2, depth=6, m=2))
+    assert np.array_equal(img, _render(ds_np, "mega", 32, 18, spp=2, depth=6, m=3))
 
 
 def test_wrapper_refuses_other_devices(book):

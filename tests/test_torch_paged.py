@@ -8,6 +8,11 @@ megakernel on the JAX package's own pins (tests/test_paged.py).  The CUDA
 kernel itself is compared with the plain version on the card
 (tests/test_torch_cuda.py and chip_smoke.py).
 
+The port's paged state keeps the pixel sums apart, in a home-order
+accumulator, and has no accumulator rows; ``_jax_layout`` rebuilds the JAX
+state rows from the port's state and accumulator (lanes not re-bucketed, so
+lane == lane0) for the step comparisons.
+
 Tolerance of the step comparison: XLA:CPU contracts FMAs and rewrites
 ``x / sqrt(y)`` (ROADMAP queue 3), and the expanded quadratic's
 cancellation turns that into t noise of ~1e-4 on the field's small spheres,
@@ -42,6 +47,7 @@ torch.set_num_threads(1)
 W, H = 48, 27
 DISCRETE_F_ROWS = [pagedkernel.R_FX, pagedkernel.R_FY, pagedkernel.R_THR,
                    pagedkernel.R_THR + 1, pagedkernel.R_THR + 2]
+J_ACC = 21  # the JAX state's acc rows: 21 + 3m + c, then the carried attrs
 
 
 def _field(make, n=2000, extent=7.0, y_range=None, textured=False, checkered=CHECKERED):
@@ -85,12 +91,30 @@ def dense():
     return trace.prepare_scene(random_sphere_field(2000, seed=1, extent=7.0))
 
 
+def _jax_layout(f, acc, m_slots, n_lanes, na):
+    """The JAX package's f32 paged state rows from the port's state and
+    home-order accumulator, for lanes in home order (lane k is lane0 k)."""
+    f = f.numpy()
+    rf = jpaged.pf_rows(m_slots, na)
+    out = np.zeros((rf, f.shape[1]), np.float32)
+    out[:J_ACC] = f[:J_ACC]
+    pix = np.arange(m_slots)[:, None] * n_lanes + np.arange(n_lanes)[None, :]
+    acc_pad = np.zeros((m_slots * n_lanes, 3), np.float32)
+    acc_pad[: acc.shape[0]] = acc.numpy()
+    out[J_ACC : J_ACC + 3 * m_slots, :n_lanes] = (
+        acc_pad[pix.reshape(-1)].reshape(m_slots, n_lanes, 3)
+        .transpose(0, 2, 1).reshape(3 * m_slots, n_lanes))
+    a0 = J_ACC + 3 * m_slots
+    out[a0 : a0 + na] = f[pagedkernel.R_ATT : pagedkernel.R_ATT + na]
+    return out
+
+
 @pytest.fixture(scope="module")
 def steps(dense):
     """The JAX step from one packed state (one JAX TILE of 4096 lanes, M=2,
     depth 12): its states after one and after five one-iteration launches,
-    the port's plain steps of one and five iterations from the same state,
-    and the input state."""
+    and the port's plain steps of one and five iterations from the same
+    state, in the JAX layout."""
     ds = trace.device_scene_from_numpy(dense, "cpu")
     vp = trace.viewport_arrays(reference_camera(), 128, 64)
     f, u, scal, vpr, geom = trace.pack_state(
@@ -98,8 +122,11 @@ def steps(dense):
         offset_x=0, spp=2, number=0, pixels_per_lane=2, lane_pad=jpaged.TILE)
     assert f.shape[1] == jpaged.TILE == geom["n_lanes"]
     kw = dict(geom, max_depth=12, skip_tmax=True)
+    na = pagedkernel.n_carry(False, False)
     g = dense.paged
-    fj, uj = f.numpy(), u.numpy().view(np.uint32)
+    acc0 = trace.home_accum(None, geom["p_total"], "cpu")
+    fj = _jax_layout(f, acc0, 2, geom["n_lanes"], na)
+    uj = u.numpy().view(np.uint32)
     jax_states = []
     for _ in range(5):
         fj, uj = jpaged.paged_megakernel_step(
@@ -109,8 +136,12 @@ def steps(dense):
         fj, uj = np.asarray(fj), np.asarray(uj)
         jax_states.append((fj, uj.view(np.int32)))
     before = pagedkernel.paged_megakernel_step_plain.launches
-    port = {k: tuple(t.numpy() for t in pagedkernel.paged_megakernel_step(
-        scal, vpr, ds.paged, f, u, k_steps=k, **kw)) for k in (1, 5)}
+    port = {}
+    for k in (1, 5):
+        acc = acc0.clone()
+        fk, uk, _ = pagedkernel.paged_megakernel_step(
+            scal, vpr, ds.paged, f, u, acc, k_steps=k, **kw)
+        port[k] = (_jax_layout(fk, acc, 2, geom["n_lanes"], na), uk.numpy())
     assert pagedkernel.paged_megakernel_step_plain.launches == before + 2
     return {1: (*port[1], *jax_states[0]), 5: (*port[5], *jax_states[4])}
 
@@ -134,9 +165,9 @@ def test_step_matches_jax_interpret(steps):
     same = _discrete_same(fp, up, fj, uj)
     assert same.mean() >= 0.97, f"discrete state equal on {same.mean():.2%} of lanes"
     assert (up[pagedkernel.U_LANE0] == uj[pagedkernel.U_LANE0]).all()
-    a0 = pagedkernel.R_ACC + 3 * 2
+    a0 = J_ACC + 3 * 2
     exact = [pagedkernel.R_BKEY, *range(pagedkernel.R_CUR, pagedkernel.R_CUR + 3),
-             *range(pagedkernel.R_ACC, a0 + pagedkernel.n_carry(False, False))]
+             *range(J_ACC, a0 + pagedkernel.n_carry(False, False))]
     assert (fp[exact][:, same] == fj[exact][:, same]).all(axis=0).mean() >= 0.999
     assert _close_share(fp[0:3, same], fj[0:3, same], 1e-3) >= 0.95
     assert _close_share(fp[3:6, same], fj[3:6, same], 1e-2) >= 0.99
@@ -208,6 +239,63 @@ def test_pixels_per_lane_invariant(dense):
     image stays bit for bit the same."""
     assert np.array_equal(_render(dense, "paged", depth=5, spp=2, m=1),
                           _render(dense, "paged", depth=5, spp=2, m=3))
+
+
+def _hand_loop(ds_np, *, k_steps, sort, m=2, depth=5, spp=2):
+    """The paged step driven by hand: before every launch of ``k_steps``
+    iterations the live lanes are sorted by key and compacted (``sort``),
+    or never (every lane stays, in home order, until none is alive)."""
+    ds = trace.device_scene_from_numpy(ds_np, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), W, H)
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, vp, backend="paged", band_h=H, width=W, y0=0, seed_y0=0,
+        offset_x=0, spp=spp, number=0, pixels_per_lane=m)
+    acc = trace.home_accum(None, geom["p_total"], "cpu")
+    kw = dict(geom, max_depth=depth, skip_tmax=True, k_steps=k_steps)
+    key = trace._rebucket_key(f, u, ds.paged.gscal)
+    while bool((u[pagedkernel.U_ALIVE] != 0).any()):
+        if sort:
+            f, u = trace.gather_lanes(f, u, trace.live_order(key))
+        f, u, key = pagedkernel.paged_megakernel_step(scal, vpr, ds.paged, f, u, acc, **kw)
+    return acc.reshape(H, W, 3).numpy()
+
+
+@pytest.mark.parametrize("how", ["never", "every_launch_k1"])
+def test_sort_and_compaction_leave_the_image(dense, how):
+    """The driver sorts and compacts the live lanes before every launch of
+    ``scaled_k`` iterations; never sorting (all lanes in home order), or
+    sorting before every single iteration, gives the same image bit for
+    bit (M=2)."""
+    ref = _render(dense, "paged", depth=5, spp=2)
+    k = pagedkernel.scaled_k(-(-W * H // 2))
+    got = (_hand_loop(dense, k_steps=k, sort=False) if how == "never"
+           else _hand_loop(dense, k_steps=1, sort=True))
+    assert np.array_equal(got, ref)
+
+
+def test_step_key_and_live_order(dense):
+    """The key a step returns is ``_rebucket_key`` of its new state: dead
+    lanes get KEY_DEAD, and ``live_order`` keeps exactly the live lanes in
+    key order.  The sentinels lie beyond every Morton page code (the 100k
+    field's pages reach code 13,848, past the JAX key's 4096 / 4097)."""
+    ds = trace.device_scene_from_numpy(dense, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), W, H)
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, vp, backend="paged", band_h=H, width=W, y0=0, seed_y0=0,
+        offset_x=0, spp=1, number=0, pixels_per_lane=1)
+    acc = trace.home_accum(None, geom["p_total"], "cpu")
+    f2, u2, key = pagedkernel.paged_megakernel_step(
+        scal, vpr, ds.paged, f, u, acc, max_depth=4, skip_tmax=True, k_steps=6, **geom)
+    assert key.dtype == torch.int32
+    assert torch.equal(key, trace._rebucket_key(f2, u2, ds.paged.gscal))
+    alive = u2[pagedkernel.U_ALIVE] != 0
+    assert bool(alive.any()) and bool((~alive).any())  # lanes past n_lanes are dead
+    assert torch.equal(key == trace.KEY_DEAD, ~alive)
+    perm = trace.live_order(key)
+    assert torch.equal(torch.sort(perm).values, torch.nonzero(alive).reshape(-1))
+    assert bool((key[perm][1:] >= key[perm][:-1]).all())
+    page_max = int(trace._morton(torch.tensor(208 >> 3), torch.tensor(208 >> 3)))
+    assert 4097 < page_max < trace.KEY_MISS < trace.KEY_DEAD
 
 
 def test_jax_built_tables_give_the_same_image(dense):

@@ -2,11 +2,13 @@
 """Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
 Run from the repository root: ``python3 torch_breakdown.py [--scene
-book|dense]``.  It needs one CUDA device and builds the port's kernels on
-first use.  ``--scene book`` (the default) times the book scene at 1920x1080
-and 16 spp on the grid kernel (``ray_trace``'s main path); ``--scene dense``
-times ``random_sphere_field(100_000)`` at 3840x2160 and 8 spp on the paged
-kernel (``render_image``'s dense-scene path).  Each step is timed three times:
+book|dense|gridless]``.  It needs one CUDA device and builds the port's
+kernels on first use.  ``--scene book`` (the default) times the book scene at
+1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main path);
+``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160 and 8
+spp on the paged kernel (``render_image``'s dense-scene path); ``--scene
+gridless`` times ``three_sphere_scene()`` at 1920x1080 and 16 spp on the
+brute-force megakernel.  Each step is timed three times:
 
 - the host steps of a render: scene generation, ``prepare_scene`` (for the
   dense scene also its parts: the flat-grid attempt that returns None and
@@ -15,11 +17,15 @@ kernel (``render_image``'s dense-scene path).  Each step is timed three times:
 - ``Renderer.render`` in exact and fast mode, steady state after one warm-up
   (host clock around work that ends in ``torch.cuda.synchronize()``);
 - one instrumented render per mode: each kernel launch timed with CUDA
-  events, with the number of lanes alive going into it, and each lane
-  re-bucket of the paged driver timed the same way;
+  events, with the number of lanes alive going into it; for the paged
+  driver also the first launch's sort key, and the sort and the gather of
+  the live lanes before each launch, timed the same way;
 - the tonemap and copy to the host, and the PNG encode;
 - the same exact frame on the brute-force megakernel (book scene only: on
   100k spheres it would take minutes);
+- the exact frame's wall and launches at each iteration count per launch of
+  ``K_SWEEP`` (dense: the paged interval ``scaled_k``; gridless:
+  ``megakernel.K_STEPS``); output bits do not depend on it;
 - the device time of the kernel under ``torch.profiler``.
 
 It prints the card's name and power limit, one JSON object of the timings,
@@ -40,8 +46,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
 # scene -> (spp, width, height, step module, step name)
 SCENES = {"book": (16, 1920, 1080, "gridkernel", "grid_megakernel_step"),
-          "dense": (8, 3840, 2160, "pagedkernel", "paged_megakernel_step")}
+          "dense": (8, 3840, 2160, "pagedkernel", "paged_megakernel_step"),
+          "gridless": (16, 1920, 1080, "megakernel", "megakernel_step")}
 DENSE_N = 100_000
+K_SWEEP = {"dense": (10, 20, 40, 80), "gridless": (10, 20, 40)}
 
 
 def wall(fn):
@@ -62,44 +70,46 @@ def _events():
 
 
 def instrumented(renderer, mod, name):
-    """Render once with each launch of ``mod.<name>`` and each
-    ``trace.rebucket`` timed by CUDA events; returns (wall s, per-launch ms,
-    alive lanes going into each launch, per-re-bucket ms)."""
+    """Render once with each launch of ``mod.<name>`` timed by CUDA events,
+    and for the paged driver its first key, each sort and each gather;
+    returns (wall s, per-launch ms, alive lanes going into each launch,
+    {"key"|"sort"|"gather": per-call ms})."""
     from raytrace_tpu_torch.ops import trace
 
-    orig, orig_rb = getattr(mod, name), trace.rebucket
-    launch_ev, rb_ev, alive = [], [], []
+    orig = getattr(mod, name)
+    glue = {"key": "_rebucket_key", "sort": "live_order", "gather": "gather_lanes"}
+    orig_glue = {k: getattr(trace, f) for k, f in glue.items()}
+    launch_ev, alive, glue_ev = [], [], {k: [] for k in glue}
 
-    def timed(*args, **kw):
-        u = args[4]  # ustate
-        alive.append(int((u[mod.U_ALIVE] != 0).sum()))
-        a, b = _events()
-        a.record()
-        out = orig(*args, **kw)
-        b.record()
-        launch_ev.append((a, b))
-        return out
+    def timing(fn, events, on_call=None):
+        def timed(*args, **kw):
+            if on_call is not None:
+                on_call(args)
+            a, b = _events()
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            events.append((a, b))
+            return out
+        return timed
 
-    def timed_rebucket(*args):
-        a, b = _events()
-        a.record()
-        out = orig_rb(*args)
-        b.record()
-        rb_ev.append((a, b))
-        return out
-
-    timed.launches = orig.launches  # the wrapper counts through its module name
-    setattr(mod, name, timed)
-    trace.rebucket = timed_rebucket
+    u_arg = 5 if name == "megakernel_step" else 4  # the ustate argument
+    step = timing(orig, launch_ev,
+                  lambda args: alive.append(int((args[u_arg][mod.U_ALIVE] != 0).sum())))
+    step.launches = orig.launches  # the wrapper counts through its module name
+    setattr(mod, name, step)
+    for k, f in glue.items():
+        setattr(trace, f, timing(orig_glue[k], glue_ev[k]))
     try:
         _, sec = wall(renderer.render)
     finally:
         setattr(mod, name, orig)
-        trace.rebucket = orig_rb
-        orig.launches = timed.launches
+        for k, f in glue.items():
+            setattr(trace, f, orig_glue[k])
+        orig.launches = step.launches
     ms = [round(a.elapsed_time(b), 3) for a, b in launch_ev]
-    rb_ms = [round(a.elapsed_time(b), 3) for a, b in rb_ev]
-    return sec, ms, alive, rb_ms
+    glue_ms = {k: [round(a.elapsed_time(b), 3) for a, b in ev] for k, ev in glue_ev.items()}
+    return sec, ms, alive, glue_ms
 
 
 def main() -> int:
@@ -118,8 +128,9 @@ def main() -> int:
     from raytrace_tpu_torch import RenderConfig
     from raytrace_tpu_torch.models.grid import build_grid
     from raytrace_tpu_torch.models.paged_grid import build_paged_grid
-    from raytrace_tpu_torch.models.scene import generate_random_scene, random_sphere_field
-    from raytrace_tpu_torch.ops import trace
+    from raytrace_tpu_torch.models.scene import (generate_random_scene,
+                                                 random_sphere_field, three_sphere_scene)
+    from raytrace_tpu_torch.ops import megakernel, pagedkernel, trace
     from raytrace_tpu_torch.ops.image import accum_to_u8
     from raytrace_tpu_torch.ops.intersect import sphere_table
     from raytrace_tpu_torch.runtime.renderer import Renderer
@@ -135,8 +146,9 @@ def main() -> int:
            "width": width, "height": height}
     reps = range(REPS)
 
-    make = ((lambda: generate_random_scene(0.0)) if scene_name == "book"
-            else (lambda: random_sphere_field(DENSE_N)))
+    make = {"book": lambda: generate_random_scene(0.0),
+            "dense": lambda: random_sphere_field(DENSE_N),
+            "gridless": three_sphere_scene}[scene_name]
     scenes = [wall(make) for _ in reps]
     res["scene_gen_s"] = [s for _, s in scenes]
     scene = scenes[0][0]
@@ -162,12 +174,20 @@ def main() -> int:
         res[f"{mode}_backend"], res[f"{mode}_m"] = r.backend, r.pixels_per_lane
         renders = [wall(r.render) for _ in range(REPS + 1)]  # first: warm-up
         res[f"render_{mode}_s"] = [s for _, s in renders]
-        sec, ms, alive, rb_ms = instrumented(r, mod, step_name)
+        sec, ms, alive, glue_ms = instrumented(r, mod, step_name)
         res[f"{mode}_instrumented_wall_s"] = sec
         res[f"{mode}_launches"] = len(ms)
         res[f"{mode}_kernel_ms_sum"] = sum(ms)
-        res[f"{mode}_rebucket_ms_sum"] = sum(rb_ms)
-        res[f"{mode}_host_ms"] = sec * 1e3 - sum(ms) - sum(rb_ms)
+        glue_sum = 0.0
+        for k, v in glue_ms.items():
+            if v:
+                res[f"{mode}_{k}_ms_sum"] = sum(v)
+                res[f"{mode}_{k}_ms_each"] = v
+                glue_sum += sum(v)
+        if glue_ms["gather"]:
+            res[f"{mode}_rebucket_ms_per_launch"] = (
+                (sum(glue_ms["sort"]) + sum(glue_ms["gather"])) / len(glue_ms["gather"]))
+        res[f"{mode}_host_ms"] = sec * 1e3 - sum(ms) - glue_sum
         res[f"{mode}_kernel_ms_each"] = ms
         res[f"{mode}_alive_lanes_in"] = alive
         accum, total = renders[-1][0]
@@ -179,6 +199,22 @@ def main() -> int:
     if scene_name == "book":
         r = Renderer(cfg(backend="mega"), scene=scene, device=dev)
         res["mega_render_exact_s"] = [wall(r.render)[1] for _ in range(REPS + 1)]
+
+    if scene_name in K_SWEEP:
+        r = Renderer(cfg(), scene=scene, device=dev)
+        orig_k = (pagedkernel.scaled_k, megakernel.K_STEPS)
+        for k in K_SWEEP[scene_name]:
+            if scene_name == "dense":
+                pagedkernel.scaled_k = lambda n, k=k: k
+            else:
+                megakernel.K_STEPS = k
+            try:
+                before = getattr(mod, step_name).launches
+                walls = [wall(r.render)[1] for _ in range(REPS + 1)]  # first: warm-up
+                res[f"k{k}_render_exact_s"] = walls
+                res[f"k{k}_launches"] = (getattr(mod, step_name).launches - before) // (REPS + 1)
+            finally:
+                pagedkernel.scaled_k, megakernel.K_STEPS = orig_k
 
     res["render_exact_median_s"] = statistics.median(res["render_exact_s"][1:])
     print(json.dumps(res), flush=True)
