@@ -255,25 +255,16 @@ def main() -> int:
     three = three_sphere_scene()
     ds3 = trace.device_scene_from_numpy(trace.prepare_scene(three), dev)
     atab3 = ds3.table[:, 8:24].T.contiguous()
-    mega_res = {}
-    for label, dsc, at, sk in ((" (three-sphere)", ds3, atab3, trace.tmax_never_binds(three, cam)),
-                               (" (book)", ds, atab, skip)):
-        for staged in (False, True):
-            megakernel.STAGED = staged
-            mega_res[label, staged] = check_step(
-                "megakernel_step", "mega", dsc, MAIN_W, MAIN_H, MAIN_SPP, sk,
-                megakernel.megakernel_step, megakernel.megakernel_step_plain,
-                mega_call(dsc, at), [dsc.table, at],
-                label=label + (" staged" if staged else ""))
-    megakernel.STAGED = False
-    f_mid = mega_res[" (book)", False][0][0]
-    (_, err3, *res3), (_, errb, *resb) = (mega_res[" (three-sphere)", False],
-                                          mega_res[" (book)", False])
+    (_, err3, *res3), ((f_mid, _), errb, *resb) = (
+        check_step("megakernel_step", "mega", dsc, MAIN_W, MAIN_H, MAIN_SPP, sk,
+                   megakernel.megakernel_step, megakernel.megakernel_step_plain,
+                   mega_call(dsc, at), [dsc.table, at], label=label)
+        for label, dsc, at, sk in (
+            (" (three-sphere)", ds3, atab3, trace.tmax_never_binds(three, cam)),
+            (" (book)", ds, atab, skip)))
     record("megakernel_step", "raytrace_tpu_torch/csrc/megakernel.cu",
            "raytrace_tpu/ops/megakernel.py:473", max(err3, errb), *res3,
-           book_ms=resb[0], book_plain_ms=resb[1], book_bound_ms=resb[2],
-           staged_ms=mega_res[" (three-sphere)", True][2],
-           book_staged_ms=mega_res[" (book)", True][2])
+           book_ms=resb[0], book_plain_ms=resb[1], book_bound_ms=resb[2])
 
     # the paged kernel on the driver's sorted and compacted live lanes, two
     # launches into the 100k frame; its home-order accumulator and its key

@@ -38,8 +38,8 @@ FORBIDDEN_PTX = ("sqrt.approx.f32", "div.approx.f32", "div.full.f32", "rsqrt",
 
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # 8 pointers, 14 ints, pmin, staged, device, stream
-    "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 14 + [_FLOAT, _INT, _INT, _VOIDP],
+    # 8 pointers, 14 ints, pmin, device, stream
+    "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 14 + [_FLOAT, _INT, _VOIDP],
     # 12 pointers (ttab may be NULL), 18 ints, pmin, device, stream
     "rt_grid_megakernel_step": [_VOIDP] * 12 + [_INT] * 18 + [_FLOAT, _INT, _VOIDP],
     # 13 pointers, 17 ints, pmin, device, stream

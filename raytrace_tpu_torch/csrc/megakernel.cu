@@ -21,8 +21,8 @@
 // - a row's (cx, cy, cz, kc) is one 16-byte load (row i starts at byte 96 i)
 //   that every lane of a warp shares;
 // - a miss skips the IEEE root's slow path (rt::quadratic).
-// With STAGED the rows come from a shared-memory tile instead, loaded by the
-// whole block in a block-uniform loop.
+// Staging the rows in shared-memory tiles instead, loaded by the whole block
+// in a block-uniform loop, measured slower on the card (PERF.md, PR 3).
 //
 // State: row-major [rows, n_pad] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy,
 // 8-10 thr, 11 pad, 12 + 3m + c acc[m]; int32 rows (u32 bits) 0 seed, 1 m,
@@ -36,7 +36,6 @@ namespace {
 constexpr int R_ACC = 12;
 constexpr int U_ROWS = 8;
 constexpr int BLOCK = 128;
-constexpr int CHUNK = 256;  // table rows per shared-memory tile (STAGED)
 
 struct MegaParams {
   const int32_t* scal;
@@ -52,27 +51,13 @@ struct MegaParams {
   rt::RR rr;
 };
 
-__device__ __forceinline__ void closest(const rt::RayTerms& q, float4 row, int i,
-                                        bool skip_tmax, float& t, int& idx) {
-  const float tc = rt::quadratic(q, row.x, row.y, row.z, row.w, skip_tmax);
-  if (tc < t) {
-    t = tc;
-    idx = i;
-  }
-}
-
-template <bool STAGED>
 __global__ void __launch_bounds__(BLOCK) megakernel_step_kernel(MegaParams P) {
-  __shared__ float4 s_rows[STAGED ? CHUNK : 1];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P.n_pad) return;
   const int n = P.n_pad;
-  const bool in_range = lane < n;
-  if (in_range) {
-    for (int r = 0; r < P.rf; ++r) P.fout[r * n + lane] = P.fin[r * n + lane];
-    for (int r = 0; r < U_ROWS; ++r) P.uout[r * n + lane] = P.uin[r * n + lane];
-  }
-  const bool live0 = in_range && P.uin[rt::U_ALIVE * n + lane] != 0;
-  if (STAGED ? !__syncthreads_or(live0) : !live0) return;
+  for (int r = 0; r < P.rf; ++r) P.fout[r * n + lane] = P.fin[r * n + lane];
+  for (int r = 0; r < U_ROWS; ++r) P.uout[r * n + lane] = P.uin[r * n + lane];
+  if (P.uin[rt::U_ALIVE * n + lane] == 0) return;
 
   const int spp = P.scal[rt::S_SPP];
   const uint32_t number = (uint32_t)P.scal[rt::S_NUMBER];
@@ -82,40 +67,33 @@ __global__ void __launch_bounds__(BLOCK) megakernel_step_kernel(MegaParams P) {
   const float* atab = P.atab;
   const int S = P.s_rows;
   const float4* rows4 = reinterpret_cast<const float4*>(P.table);  // 6 per row
-  const int lane_c = live0 ? lane : 0;  // a dead thread of a STAGED block reads lane 0
-  float* acc = P.fout + R_ACC * n + lane_c;
+  float* acc = P.fout + R_ACC * n + lane;
 
-  float ox = P.fin[0 * n + lane_c], oy = P.fin[1 * n + lane_c], oz = P.fin[2 * n + lane_c];
-  float dx = P.fin[3 * n + lane_c], dy = P.fin[4 * n + lane_c], dz = P.fin[5 * n + lane_c];
-  float fx = P.fin[rt::R_FX * n + lane_c], fy = P.fin[rt::R_FY * n + lane_c];
-  float tx = P.fin[(rt::R_THR + 0) * n + lane_c];
-  float ty = P.fin[(rt::R_THR + 1) * n + lane_c];
-  float tz = P.fin[(rt::R_THR + 2) * n + lane_c];
-  uint32_t seed = (uint32_t)P.uin[rt::U_SEED * n + lane_c];
-  int mrow = P.uin[rt::U_M * n + lane_c];
-  int sidx = P.uin[rt::U_SIDX * n + lane_c];
-  int depth = P.uin[rt::U_DEPTH * n + lane_c];
-  bool alive = live0;
+  float ox = P.fin[0 * n + lane], oy = P.fin[1 * n + lane], oz = P.fin[2 * n + lane];
+  float dx = P.fin[3 * n + lane], dy = P.fin[4 * n + lane], dz = P.fin[5 * n + lane];
+  float fx = P.fin[rt::R_FX * n + lane], fy = P.fin[rt::R_FY * n + lane];
+  float tx = P.fin[(rt::R_THR + 0) * n + lane];
+  float ty = P.fin[(rt::R_THR + 1) * n + lane];
+  float tz = P.fin[(rt::R_THR + 2) * n + lane];
+  uint32_t seed = (uint32_t)P.uin[rt::U_SEED * n + lane];
+  int mrow = P.uin[rt::U_M * n + lane];
+  int sidx = P.uin[rt::U_SIDX * n + lane];
+  int depth = P.uin[rt::U_DEPTH * n + lane];
+  bool alive = true;
 
-  for (int it = 0; it < P.k_steps; ++it) {
-    if (STAGED ? !__syncthreads_or(alive) : !alive) break;
+  for (int it = 0; it < P.k_steps && alive; ++it) {
     const rt::RayTerms q = rt::ray_terms(ox, oy, oz, dx, dy, dz);
 
     // ---- closest hit over the valid rows (shader.rint) -------------------
     float t = rt::BIG;
     int idx = 0;
-    if (STAGED) {
-      for (int base = 0; base < P.n_valid; base += CHUNK) {
-        const int nr = min(CHUNK, P.n_valid - base);
-        __syncthreads();  // the previous tile is consumed
-        for (int r = threadIdx.x; r < nr; r += BLOCK) s_rows[r] = __ldg(rows4 + 6 * (base + r));
-        __syncthreads();
-        if (alive)
-          for (int r = 0; r < nr; ++r) closest(q, s_rows[r], base + r, P.skip_tmax, t, idx);
+    for (int i = 0; i < P.n_valid; ++i) {
+      const float4 row = __ldg(rows4 + 6 * i);  // cx, cy, cz, kc
+      const float tc = rt::quadratic(q, row.x, row.y, row.z, row.w, P.skip_tmax);
+      if (tc < t) {
+        t = tc;
+        idx = i;
       }
-      if (!alive) continue;
-    } else {
-      for (int i = 0; i < P.n_valid; ++i) closest(q, __ldg(rows4 + 6 * i), i, P.skip_tmax, t, idx);
     }
     const bool hit = t < rt::BIG;
     rt::Hit h;
@@ -200,7 +178,6 @@ __global__ void __launch_bounds__(BLOCK) megakernel_step_kernel(MegaParams P) {
     sidx = adv ? 1 : sidx + (more ? 1 : 0);
     alive = cont || regen;
   }
-  if (!live0) return;
 
   P.fout[0 * n + lane] = ox; P.fout[1 * n + lane] = oy; P.fout[2 * n + lane] = oz;
   P.fout[3 * n + lane] = dx; P.fout[4 * n + lane] = dy; P.fout[5 * n + lane] = dz;
@@ -224,17 +201,14 @@ extern "C" int rt_megakernel_step(
     const float* fin, const int32_t* uin, float* fout, int32_t* uout,
     int s_rows, int n_valid, int n_pad, int rf, int m_slots, int n_lanes, int p_total,
     int width, int max_depth, int k_steps, int skip_tmax,
-    int rr_on, int rr_d0, int rr_d1, float rr_pmin, int staged, int device, void* stream) {
+    int rr_on, int rr_d0, int rr_d1, float rr_pmin, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   MegaParams P{scal, vpr, table, atab, fin, uin, fout, uout,
                s_rows, n_valid, n_pad, rf, m_slots, n_lanes, p_total, width, max_depth,
                k_steps, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
   const int grid = (n_pad + BLOCK - 1) / BLOCK;
-  if (staged)
-    megakernel_step_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);
-  else
-    megakernel_step_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);
+  megakernel_step_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 

@@ -186,9 +186,15 @@ __device__ __forceinline__ Shade shade(const RayTerms& q, float t, uint32_t seed
     nz = -nz;
   }
 
-  // 3-D sine checker, size 6 (shader.rchit:53-64)
-  float sines = sinf(6.0f * s.px) * sinf(6.0f * s.py) * sinf(6.0f * s.pz);
-  bool use_c1 = (h.tex > 0.5f) && !(sines > 0.0f);
+  // 3-D sine checker, size 6 (shader.rchit:53-64).  Only a textured sphere
+  // that was hit reads it: a plain sphere skips it, and so does a miss, whose
+  // albedo nothing reads (t = BIG puts its point where sinf would take its
+  // Payne-Hanek slow path).
+  bool use_c1 = false;
+  if (h.tex > 0.5f && t < BIG) {
+    float sines = sinf(6.0f * s.px) * sinf(6.0f * s.py) * sinf(6.0f * s.pz);
+    use_c1 = !(sines > 0.0f);
+  }
   s.ax = use_c1 ? h.c1x : h.c0x;
   s.ay = use_c1 ? h.c1y : h.c0y;
   s.az = use_c1 ? h.c1z : h.c0z;

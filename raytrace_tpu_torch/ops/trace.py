@@ -457,9 +457,10 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
     Slot 0 of lane k is pixel k; ``paged`` state also holds k in its
     ``U_LANE0`` row and has no accumulator rows (``home_accum`` makes its
-    accumulator, and ``accum_init`` raises).  The first camera ray comes from the kernels' own
-    ``camera_rays_rows``, so every sample of the kernel path is generated by
-    one formula and the image is bit-identical for any M.  (The JAX drivers
+    accumulator, and ``accum_init`` raises).  The first camera ray comes
+    from the kernels' own ``camera_rays_rows``, so every sample of the
+    kernel path is generated by one formula and the image is bit-identical
+    for any M.  (The JAX drivers
     use the spec ``_camera_rays`` here; XLA rewrites both normalizations to
     ``v * rsqrt(n2)`` so the difference never shows there, but in IEEE
     arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))`` differ in the last

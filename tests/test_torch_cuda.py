@@ -92,15 +92,13 @@ def test_grid_kernel_matches_plain(cuda, name, rr):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("staged", [False, True], ids=["ldg", "smem"])
 @pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
 @pytest.mark.parametrize("name", ["book", "three_sphere", "field2000"])
-def test_megakernel_matches_plain(cuda, name, rr, staged, monkeypatch):
+def test_megakernel_matches_plain(cuda, name, rr):
     scene = {"book": lambda: generate_random_scene(0.0),
              "three_sphere": three_sphere_scene,
              # 2048-row table: more than one 512-row block
              "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0)}[name]()
-    monkeypatch.setattr(megakernel, "STAGED", staged)
     ds = trace.device_scene_from_numpy(trace.prepare_scene(scene), cuda)
     accum = torch.rand((72, 128, 3), device=cuda)
     f, u, scal, vpr, geom = _state(ds, "mega", accum=accum)

@@ -90,8 +90,9 @@ def _close_share(a, b, tol):
 
 
 def test_step_matches_jax_interpret(book):
-    """Book scene, one launch (K_STEPS iterations) each."""
-    fp, up, fj, uj = _steps(book, megakernel.K_STEPS)
+    """Book scene, one 10-iteration launch each (the launch length the
+    shares below were measured at; XLA's noise compounds with iterations)."""
+    fp, up, fj, uj = _steps(book, 10)
     same = _discrete_same(fp, up, fj, uj)
     assert same.mean() >= 0.97, f"discrete state equal on {same.mean():.2%} of lanes"
     # the lanes still alive after the launch are the same lanes
