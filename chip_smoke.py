@@ -9,15 +9,19 @@ one line and raises on failure, so any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the four CUDA kernels from ``raytrace_tpu_torch/csrc`` (one nvcc
    per source, started together), and a PTX check that no fast-math
-   instruction (approximate sqrt/div, rsqrt, sin) reached any of them;
+   instruction (approximate sqrt/div, rsqrt, sin) reached any of them; the
+   registers, spills and resident blocks per SM of the grid and fused
+   intersect kernels' instances (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. kernel vs plain version, on the card, at the main path's shapes, each
    kernel's result compared with its plain torch version on the same inputs
    (>= 99.9% of lanes or rays bit-equal), exact and fast mode for the steps,
    with both times (CUDA events, median of several calls) and the least time
    the card could take for the work (bytes over 3.35 TB/s or fp32 operations
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs):
-   the grid step on a book-scene state at the 1920x1080 lane count; the
-   brute-force step on the three-sphere state (the path that launches it)
+   the grid step on the driver's live lanes of a book-scene state at the
+   1920x1080 lane count, with its home-order accumulator (every pixel
+   bit-equal); the brute-force step on the three-sphere state (the path that
+   launches it)
    and on the book-scene state, at the same lane count, the kernel scanning
    the table's valid prefix and the plain version every row; the paged step
    on the sorted and compacted live lanes of a 100k-sphere state at the
@@ -26,9 +30,10 @@ one line and raises on failure, so any failure exits non-zero:
    the fused intersect kernel on the 259,200 rays of the book-scene state;
 4. gates: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
    by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), grid == mega and
-   paged == mega on the 100k-sphere field exactly at 128x72, depth 4, and
-   the ``pallas`` and ``matmul`` backends at 24x14 under the JAX package's
-   statistical rules;
+   paged == mega on the 100k-sphere field exactly at 128x72, depth 4, the
+   ``pallas`` and ``matmul`` backends at 24x14 under the JAX package's
+   statistical rules, and grid == mega exactly through ``ray_trace`` at
+   128x72 x 2 spp, depth 8, and at 1920x1080 x 16 spp, depth 50;
 5. main path, with every launch count set to 0 just before it and read
    just after it: ``ray_trace(samples=16, width=1920, height=1080,
    store_render_result=True)`` on the book scene, exact and fast (grid
@@ -96,6 +101,17 @@ def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def in_turns(fns, reps, rounds=2):
+    """{name: median ms} of each ``fns[name]()`` timed in turns: every
+    round times them in order and then in reverse (a, b, b, a), ``reps``
+    CUDA-event timings each (``cuda_ms``)."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in list(fns) + list(fns)[::-1]:
+            times[k].append(cuda_ms(fns[k], reps))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def compare(kern, plain):
@@ -178,7 +194,7 @@ def main() -> int:
 
     def step_state(backend, dsc, w, h, spp):
         """A band state at (w, h)'s lane count (the renderer's M)."""
-        m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev)), 1, rmod.M_MAX))
+        m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev, backend)), 1, rmod.M_MAX))
         vp = trace.viewport_arrays(cam, w, h)
         return m, trace.pack_state(
             dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
@@ -231,13 +247,104 @@ def main() -> int:
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None, **extra)
 
-    grid_tables = [getattr(ds.grid, f) for f in ds.grid._fields]
-    _, *res = check_step(
-        "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
-        gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
-        lambda k, s, v, f, u, g, **x: k(s, v, ds.grid, f, u, **g, **x), grid_tables)
+    # what the card makes of the redesigned kernels' instances
+    lib = _build.library()
+    for five, n_slots in ((0, 4), (0, 6), (1, 6)):
+        occ = _build.occupancy("grid", five, n_slots, dev.index)
+        phase("occupancy", f"grid kernel, {5 if five else 4}-value layout, "
+              f"{n_slots} slots: {occ}")
+    occ = _build.occupancy("intersect", dev.index)
+    phase("occupancy", f"fused intersect kernel: {occ}")
+
+    # the grid kernel two launches into the 1080p frame, on the driver's live
+    # lanes (compacted out of the full state), with its home-order
+    # accumulator; PR 3's kernel on the full state (its driver kept every
+    # lane) re-laid into its layout (accumulator rows, block-major tables),
+    # timed in turns with the new kernel on the same full state and on the
+    # live lanes
+    gm, (gf0, gu0, gscal, gvpr, ggeom) = step_state("grid", ds, MAIN_W, MAIN_H, MAIN_SPP)
+    host_grid = trace.prepare_scene(scene).grid
+    pr3_tabs = {f: torch.from_numpy(getattr(host_grid, f)).to(dev)
+                for f in ("gscal", "gtab", "gttab", "ctab", "atab")}
+    grid_tables = [t for t in ds.grid if torch.is_tensor(t)]
+    max_err = 0.0
+    for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
+        g = dict(ggeom, max_depth=50, skip_tmax=skip, rr=rr)
+        acc = trace.home_accum(None, ggeom["p_total"], dev)
+        fa, ua = gf0, gu0
+        for _ in range(2):
+            fa, ua = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, fa, ua, acc, **g)
+        f1, u1 = trace.gather_lanes(fa, ua, trace.live_lanes(ua[gridkernel.U_ALIVE]))
+        n, n_all = f1.shape[1], fa.shape[1]
+        acc_k, acc_p, work = acc.clone(), acc.clone(), {}
+        fk, uk = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, f1, u1, acc_k, **g)
+        fp, up = gridkernel.grid_megakernel_step_plain(gscal, gvpr, ds.grid, f1, u1, acc_p,
+                                                       work=work, **g)
+        torch.cuda.synchronize()
+        n_bad, err = compare((fk, uk), (fp, up))
+        acc_bad, acc_err = compare((acc_k.T,), (acc_p.T,))
+        # PR 3's kernel on the full state in its layout, against the new
+        # kernel on the same full state
+        rf3 = -(-(21 + 3 * gm) // 8) * 8
+        home = gm * n_all == ggeom["p_total"]  # every slot of every lane is a pixel
+
+        def pr3_rows(acc_):
+            return acc_.reshape(gm, n_all, 3).permute(0, 2, 1).reshape(3 * gm, n_all)
+        f3 = torch.zeros((rf3, n_all), dtype=torch.float32, device=dev)
+        f3[0:16], f3[18:21] = fa[0:16], fa[16:19]
+        if home:
+            f3[21 : 21 + 3 * gm] = pr3_rows(acc)
+        u3 = ua[0:8].contiguous()
+
+        def pr3_step(f_in=f3, u_in=u3, g=g):
+            fo, uo = torch.empty_like(f_in), torch.empty_like(u_in)
+            err_ = lib.rt_grid_megakernel_step_pr3(
+                gscal.data_ptr(), gvpr.data_ptr(), *(pr3_tabs[k].data_ptr() for k in
+                                                     ("gscal", "gtab", "gttab", "ctab", "atab")),
+                None, f_in.data_ptr(), u_in.data_ptr(), fo.data_ptr(), uo.data_ptr(),
+                pr3_tabs["gtab"].shape[0], pr3_tabs["gttab"].shape[0], 0, 4, 16, n_all, rf3,
+                gm, ggeom["n_lanes"], ggeom["p_total"], ggeom["width"], 50,
+                gridkernel.K_STEPS, gridkernel.J_STEPS, int(bool(skip)),
+                *megakernel._rr_args(g["rr"]), dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err_:
+                raise RuntimeError(f"PR 3 grid kernel: {_build.error_string(err_)}")
+            return fo, uo
+        f3o, u3o = pr3_step()
+        acc_f = acc.clone()
+        ff, uf = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, fa, ua, acc_f, **g)
+        torch.cuda.synchronize()
+        pr3_bad = (compare((f3o[[*range(16), 18, 19, 20]], u3o, f3o[21 : 21 + 3 * gm]),
+                           (ff, uf[0:8], pr3_rows(acc_f)))[0] if home else None)
+        max_err = max(max_err, err, acc_err)
+        timing = ""
+        if mode == "exact":
+            acc_t = acc.clone()
+            turns = in_turns({
+                "pr3": pr3_step,
+                "new_full_state": lambda: gridkernel.grid_megakernel_step(
+                    gscal, gvpr, ds.grid, fa, ua, acc_t, **g),
+                "new_live_lanes": lambda: gridkernel.grid_megakernel_step(
+                    gscal, gvpr, ds.grid, f1, u1, acc_t, **g)}, 5)
+            g_ms, g_pr3_ms = turns["new_live_lanes"], turns["pr3"]
+            g_plain_ms = cuda_ms(lambda: gridkernel.grid_megakernel_step_plain(
+                gscal, gvpr, ds.grid, f1, u1, acc_t, **g), 2)
+            # the live lanes' state in and out, each flushed pixel's slot
+            # read and written, the tables once
+            moved = (2 * nbytes(f1, u1) + 24 * work.get("flushes", 0)
+                     + nbytes(gscal, gvpr, *grid_tables))
+            g_bound_ms, g_bound_by, timing = step_timing(g_ms, g_plain_ms, work, moved)
+            timing += f"; in turns (ms per launch): {turns}"
+        phase("kernel", f"grid_megakernel_step {mode}: {n} live lanes of {n_all} "
+              f"(M={gm}), {n_bad} lanes differ from the plain version, {acc_bad} of "
+              f"{ggeom['p_total']} accumulator pixels differ; on the full state PR 3's "
+              f"kernel: {pr3_bad} lanes differ; max |diff| {max(err, acc_err)}{timing}")
+        if n_bad > n // 1000 or acc_bad:
+            raise RuntimeError(f"grid_megakernel_step {mode}: {n_bad}/{n} lanes, "
+                               f"{acc_bad} pixels differ")
     record("grid_megakernel_step", "raytrace_tpu_torch/csrc/gridkernel.cu",
-           "raytrace_tpu/ops/gridkernel.py:1123", *res)
+           "raytrace_tpu/ops/gridkernel.py:1123", max_err, g_ms, g_plain_ms,
+           g_bound_ms, g_bound_by, pr3_ms=g_pr3_ms)
 
     # the brute-force kernel scans the valid prefix of the table; its plain
     # version scans every row
@@ -319,23 +426,46 @@ def main() -> int:
 
     # the fused intersect kernel on the rays of the book-scene state two
     # launches into a 1080p render (259,200 camera and bounce rays)
+    # (the kernel scans the valid prefix; the plain version every row)
     o = f_mid[0:3].T.contiguous()
     d = f_mid[3:6].T.contiguous()
-    out_k = pallas_intersect.intersect_shade_pallas(o, d, ds.table)
+    n_valid = int(ds.valid.sum())
+
+    def pk_call():
+        return pallas_intersect.intersect_shade_pallas(o, d, ds.table, n_valid=n_valid)
+
+    def pr3_intersect():
+        t_, a_ = torch.empty(o.shape[0], device=dev), torch.empty((o.shape[0], 16), device=dev)
+        err_ = lib.rt_intersect_shade_pr3(o.data_ptr(), d.data_ptr(), ds.table.data_ptr(),
+                                          t_.data_ptr(), a_.data_ptr(), o.shape[0],
+                                          ds.table.shape[0], dev.index,
+                                          torch.cuda.current_stream(dev).cuda_stream)
+        if err_:
+            raise RuntimeError(f"PR 3 intersect kernel: {_build.error_string(err_)}")
+        return t_, t_ < 3e38, a_
+
+    out_k = pk_call()
     out_p = pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table)
+    out_3 = pr3_intersect()
     torch.cuda.synchronize()
-    n_bad, err = compare([x.reshape(x.shape[0], -1).T for x in out_k],
-                         [x.reshape(x.shape[0], -1).T for x in out_p])
-    ms = cuda_ms(lambda: pallas_intersect.intersect_shade_pallas(o, d, ds.table), 10)
+
+    def cols(out):
+        return [x.reshape(x.shape[0], -1).T for x in out]
+    n_bad, err = compare(cols(out_k), cols(out_p))
+    pr3_bad = compare(cols(out_3), cols(out_k))[0]
+    turns = in_turns({"pr3": pr3_intersect, "new": pk_call}, 10)
+    ms, i_pr3_ms = turns["new"], turns["pr3"]
     plain_ms = cuda_ms(lambda: pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table), 3)
-    n_rays, n_valid = o.shape[0], int((ds.table[:, 4] > 0).sum())
+    n_rays = o.shape[0]
     ops = OPS_QUADRATIC * n_rays * n_valid + OPS_LANE_ITER * n_rays
     moved = nbytes(o, d, ds.table, *out_k[0:1], out_k[2])
     bound_ms, bound_by = bound(moved, ops)
     phase("kernel", f"intersect_shade_pallas: {n_rays} rays x {ds.table.shape[0]} rows, "
           f"{n_bad} rays differ from the plain version, max |diff| {err}, "
-          f"{int(out_k[1].sum())} hits; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"per call, bound {bound_ms:.4f} ms ({bound_by}: {moved} B, {ops} ops)")
+          f"{int(out_k[1].sum())} hits, {n_valid} valid rows scanned; PR 3's kernel: "
+          f"{pr3_bad} rays differ; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms per call, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {moved} B, {ops} ops); in turns (ms per call): {turns}")
     if n_bad > n_rays // 1000:
         raise RuntimeError(f"intersect_shade_pallas: {n_bad}/{n_rays} rays differ (> 0.1%)")
     records["intersect_shade_pallas"] = dict(
@@ -343,7 +473,7 @@ def main() -> int:
         source="raytrace_tpu_torch/csrc/intersect.cu",
         replaces="raytrace_tpu/ops/pallas_intersect.py:104", launches=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
+        bound_by=bound_by, library_ms=None, pr3_ms=i_pr3_ms)
 
     # ---- 4. gates ----------------------------------------------------------
     def render(dsc, backend, w, h, spp, depth, m_, skip_tmax=skip):
@@ -410,6 +540,21 @@ def main() -> int:
     phase("golden", f"ray_trace grid == mega at 128x72 depth 8: {n_diff} px differ")
     if n_diff:
         raise RuntimeError("grid and mega differ through ray_trace")
+    # and at the main path's full width, exact mode
+    walls = {}
+    for backend in ("grid", "mega"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raytrace_tpu_torch.ray_trace(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H,
+                                     backend=backend)
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t0
+        imgs[backend] = seen["accum"]
+    n_diff = int((imgs["grid"] != imgs["mega"]).any(dim=2).sum())
+    phase("golden", f"ray_trace grid == mega at {MAIN_W}x{MAIN_H} x {MAIN_SPP} spp, "
+          f"depth 50: {n_diff} px differ (walls {walls})")
+    if n_diff:
+        raise RuntimeError("grid and mega differ at full width")
 
     # ---- 5. main path ------------------------------------------------------
     counters = (gridkernel.grid_megakernel_step, megakernel.megakernel_step,

@@ -142,6 +142,26 @@ __device__ __forceinline__ float quadratic(const RayTerms& q, float cx, float cy
   return t1_ok ? t1 : (t2_ok ? t2 : BIG);
 }
 
+// quadratic() with the root taken only on a hit: a miss (disc < 0 or NaN)
+// returns BIG before the square root, the same bits, since both of its roots
+// would fail `ok`.  For the grid and fused-intersect kernels, where most
+// tests miss.
+__device__ __forceinline__ float quadratic_hit(const RayTerms& q, float cx, float cy,
+                                               float cz, float kc, bool skip_tmax) {
+  const float cd = cx * q.dx + cy * q.dy + cz * q.dz;
+  const float co = cx * q.ox + cy * q.oy + cz * q.oz;
+  const float b = q.od - cd;
+  const float c = q.oo - 2.0f * co + kc;
+  const float disc = b * b - q.a * c;
+  if (!(disc >= 0.0f)) return BIG;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) * q.inv_a;
+  const float t2 = (-b + sq) * q.inv_a;
+  const bool t1_ok = skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX);
+  const bool t2_ok = skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX);
+  return t1_ok ? t1 : (t2_ok ? t2 : BIG);
+}
+
 // ray vs axis slab [lo, hi] from a precomputed reciprocal; degenerate d:
 // inside -> (-BIG, BIG), outside -> empty
 __device__ __forceinline__ void slab_inv(float o, float d, float inv, float lo,

@@ -28,7 +28,11 @@ block by the high bits.
 
 Port copy of ``raytrace_tpu/models/grid.py``, byte-for-byte in behaviour
 (numpy only): the port never imports the JAX package, whose ``__init__``
-imports jax.
+imports jax.  ``build_grid`` keeps the block-major layout above, which the
+tests hold byte-equal to the JAX builder's; ``cell_major`` re-lays those
+tables once per scene into the layout the port's grid kernel reads
+(``CellTables``): one contiguous record per cell and per sphere, read with
+16-byte loads instead of one 4-byte load per value 512 bytes apart.
 """
 
 from __future__ import annotations
@@ -368,3 +372,57 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
                       ttab=ttab,
                       slots4=(np.zeros((1, n_slots), np.float32)
                               if not five and n_slots != N_SLOTS else None))
+
+
+class CellTables(NamedTuple):
+    """The grid tables in the port's cell-major layout (``cell_major``).
+
+    ``cells`` [cells_pad, stride] f32, one record per cell, a slot's values
+    in one 16-byte group: the 4-value layout puts slot s at floats 4s..4s+3
+    as (cx, cz, kc, sphere id), cy being the gscal scalar; the 5-value layout
+    puts (cx, cy, cz, kc) there and the slot's sphere id at float
+    4 * n_slots + s.  ``stride`` is the block-major one (pad8(w * n_slots)),
+    which holds both; the floats past the used ones are 0.  ``attrs``
+    [ids_pad, 8] f32 per sphere id: mat, c0.rgb, attr, center.xyz (atab's
+    eight values); ``tattrs`` [ids_pad, 4]: tex, c1.rgb (ttab's four), or
+    None.  ``gtab``, ``gttab`` and ``gscal`` are GridTables' own."""
+
+    cells: object
+    attrs: object
+    gtab: object
+    gttab: object
+    gscal: object
+    tattrs: object = None
+    five: bool = False  # the 5-value slot layout (GridTables.has_cy set)
+    n_slots: int = N_SLOTS
+
+
+def cell_major(grid) -> CellTables:
+    """``GridTables`` (the port's or the JAX package's, numpy fields) ->
+    ``CellTables``, value for value."""
+    five = grid.has_cy is not None
+    n_slots = (grid.has_cy.shape[1] if five else
+               grid.slots4.shape[1] if grid.slots4 is not None else N_SLOTS)
+    w = 5 if five else 4
+    stride = -(-w * n_slots // 8) * 8
+
+    def per_entry(tab, rows):  # block-major [B * rows, 128] -> [B * 128, rows]
+        tab = np.asarray(tab, np.float32)
+        b = tab.shape[0] // rows
+        return np.ascontiguousarray(
+            tab.reshape(b, rows, CELL_LANES).transpose(0, 2, 1).reshape(b * CELL_LANES, rows))
+
+    blk = per_entry(grid.ctab, stride)  # value v = slot * w + k of each cell
+    if five:
+        vals = blk[:, : 5 * n_slots].reshape(-1, n_slots, 5)
+        cells = np.zeros_like(blk)
+        cells[:, : 4 * n_slots] = vals[:, :, :4].reshape(-1, 4 * n_slots)
+        cells[:, 4 * n_slots : 5 * n_slots] = vals[:, :, 4]
+    else:
+        cells = blk
+    tattrs = None if grid.ttab is None else np.ascontiguousarray(per_entry(grid.ttab, 8)[:, :4])
+    return CellTables(cells=cells, attrs=per_entry(grid.atab, 8),
+                      gtab=np.asarray(grid.gtab, np.float32),
+                      gttab=np.asarray(grid.gttab, np.float32),
+                      gscal=np.asarray(grid.gscal, np.float32), tattrs=tattrs,
+                      five=five, n_slots=int(n_slots))

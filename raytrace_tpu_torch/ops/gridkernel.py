@@ -7,39 +7,48 @@ lane is in one of two modes:
   need_start (fresh segment): brute-force the <= 32 "global" spheres (ground,
       heroes, boundary-line spills), clip the ray against the grid's slab box
       and initialise a 2-D Amanatides-Woo DDA over the (x, z) cell lattice;
-  marching: ``j_steps`` DDA cells — each cell's candidates (4-value slots
-      with a shared cy, or <= 8 five-value slots) get the exact brute-force
-      quadratic, and the march ends when the next cell cannot beat the best
-      hit or the ray leaves the grid.
+  marching: up to ``j_steps`` DDA cells — each cell's candidates (4-value
+      slots with a shared cy, or <= 8 five-value slots) get the exact
+      brute-force quadratic, and the march ends when the next cell cannot
+      beat the best hit or the ray leaves the grid.
 
-Lanes whose march completed resolve the winner by sphere id (one ``atab``
-fetch, plus ``ttab`` or the textured-globals ``gttab`` chain), shade
+Lanes whose march completed resolve the winner by sphere id (one ``attrs``
+record, plus ``tattrs`` or the textured-globals ``gttab`` chain), shade
 (``shading_rows``), terminate or continue, flush the running pixel sum ``cur``
-into the acc slot when a pixel's samples are done, and regenerate.  Results
-are identical to the brute-force megakernel: the same packed (cx, cz, kc)
-values, the same quadratic op order, strict-< updates over index-sorted
-candidates in ray-ordered cells (models/grid.py exactness contract).
+into the band's accumulator when a pixel's samples are done, and regenerate.
+Results are identical to the brute-force megakernel: the same packed (cx,
+cz, kc) values, the same quadratic op order, strict-< updates over
+index-sorted candidates in ray-ordered cells (models/grid.py exactness
+contract).  ``j_steps`` moves where a launch stops, never an output bit.
 
-The tables keep the JAX package's block-major layout; a cell fetch reads row
-``(c >> 7) * stride + v``, lane ``c & 127`` directly by index.
+The tables are ``models.grid.CellTables``: the JAX package's block-major
+tables re-laid once per scene (``cell_major``) so that a cell's slots and a
+sphere's attributes are each one contiguous record.
+
+The pixel sums do not ride in the lane state: a finished pixel's sum is added
+into a separate [p_total, 3] f32 accumulator in home (pixel) order, at pixel
+``lane_pixel(m, lane0, n_lanes)``, in place, and the ``U_LANE0`` row carries
+the lane's home index, so the driver (``ops/trace.py:_render_band_mega``) can
+drop dead lanes between launches.
 
 Not in this port yet: the JAX kernel's in-kernel call merge and its hoisted
-fresh-seed rows (u32 rows 8-11: U_CALL, U_FNC, U_FNP, U_PEND) and the
+fresh-seed rows (its u32 rows 8-11: U_CALL, U_FNC, U_FNP, U_PEND) and the
 balanced ``passign`` table.  The fresh TEA seed of a lane moving to its next
-pixel is computed inline (the same hash of the same operands), so
-``U_ROWS = 8`` and rows 0-7 match the JAX state row for row.
+pixel is computed inline (the same hash of the same operands), so u32 rows
+0-7 match the JAX state row for row.
 
 ``grid_megakernel_step`` launches the hand-written CUDA kernel
 (``csrc/gridkernel.cu``) for CUDA state and the plain torch version
 ``grid_megakernel_step_plain`` for CPU state; each counts its launches in its
 ``launches`` attribute.
 
-State layout (rows of [rows, lanes] tensors; M = pixels_per_lane):
+State layout (rows of [rows, lanes] tensors):
   f32:  0-2 o | 3-5 d | 6 fx | 7 fy | 8-10 thr | 11 t_best | 12 t_end
-        | 13 t_nx | 14 t_nz | 15 bkey | 16-17 unused | 18-20 cur.rgb
-        | 21+3m+c acc[m].rgb
+        | 13 t_nx | 14 t_nz | 15 bkey | 16-18 cur.rgb  (the JAX state's rows
+        0-15 and 18-20; its rows 16-17 are unused and its acc rows are the
+        accumulator)
   int32 (u32 bits): 0 seed | 1 m | 2 sidx | 3 depth | 4 alive | 5 marching
-        | 6 icx | 7 icz
+        | 6 icx | 7 icz | 8 lane0
 bkey is the winner: the sphere id for grid hits, 4096 + id for global hits.
 """
 
@@ -49,7 +58,7 @@ import torch
 
 from ..models.grid import (G_CMAXX, G_CMAXZ, G_CMINX, G_CMINZ, G_CY, G_INVS,
                            G_NCZ, G_S, G_XHI, G_XLO, G_YHI, G_YLO, G_ZHI,
-                           G_ZLO, N_SLOTS)
+                           G_ZLO)
 from . import fp
 from . import rng as rngops
 from .intersect import BIG
@@ -59,29 +68,29 @@ from .megakernel import (S_NUMBER, S_OFFX, S_SEEDY0, S_SPP, S_Y0, SKY, TMAX,
 from .shading_rows import norm3, shade_rows
 
 K_STEPS = 40  # wavefront iterations per launch
-J_STEPS = 2  # DDA cells per wavefront iteration
+J_STEPS = 2  # DDA cells per wavefront iteration at most
 
 R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
 R_TB, R_TE, R_TNX, R_TNZ, R_BKEY = 11, 12, 13, 14, 15
-R_CUR, R_ACC = 18, 21
-U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH, U_ICX, U_ICZ = range(8)
-U_ROWS = 8
+R_CUR = 16
+F_ROWS = R_CUR + 3
+U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH, U_ICX, U_ICZ, U_LANE0 = range(9)
+U_ROWS = 9
 
 TAG = 4096.0  # bkey values >= TAG are global-table winners (TAG + id)
-
-
-def f_rows(m_slots: int) -> int:
-    r = R_ACC + 3 * m_slots
-    return -(-r // 8) * 8
+MAX_G = 32  # rows of gtab / gttab the kernel stages (models/grid.py MAX_GTAB)
 
 
 def layout(grid):
-    """(five, n_slots, stride) of a GridTables' ctab."""
-    five = grid.has_cy is not None
-    n_slots = (grid.has_cy.shape[1] if five else
-               grid.slots4.shape[1] if grid.slots4 is not None else N_SLOTS)
-    w = 5 if five else 4
-    return five, n_slots, -(-w * n_slots // 8) * 8
+    """(five, n_slots, stride) of a CellTables' cell records."""
+    return bool(grid.five), int(grid.n_slots), int(grid.cells.shape[1])
+
+
+def lane_pixel(m, lane0, n_lanes):
+    """The pixel of slot ``m`` of the lane with home index ``lane0``: M
+    strided pixels per lane.  The kernel's ``lane_pixel`` is the same
+    formula; the balanced table (ROADMAP queue 1, item 6) replaces both."""
+    return m * n_lanes + lane0
 
 
 def _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a, cx, cy, cz, kc, *,
@@ -117,54 +126,64 @@ def _slab_inv(o_c, d_c, inv, lo, hi, big):
     return t0, t1
 
 
-def grid_megakernel_step(scal, vpr, grid, fstate, ustate, *, m_slots, n_lanes,
-                         p_total, width, max_depth, k_steps=K_STEPS,
+def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
+                         n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
                          j_steps=J_STEPS, skip_tmax=False, rr=None):
-    """``k_steps`` grid-traced wavefront iterations over all lanes.
+    """``k_steps`` grid-traced wavefront iterations over the state's lanes.
 
-    ``grid``: GridTables of torch tensors on the state's device.  fstate
-    [f_rows(M), n] f32, ustate [8, n] int32.  Returns new (fstate, ustate).
-    CUDA tensors launch the kernel; CPU tensors run
+    ``grid``: CellTables of torch tensors on the state's device.  fstate
+    [F_ROWS, n] f32, ustate [U_ROWS, n] int32, any n; ``acc`` [p_total, 3]
+    f32, the band's pixel sums in home order, updated in place.  Returns new
+    (fstate, ustate).  CUDA tensors launch the kernel; CPU tensors run
     ``grid_megakernel_step_plain``."""
-    rf = f_rows(m_slots)
-    _check_state(fstate, ustate, rf, U_ROWS)
+    _check_state(fstate, ustate, F_ROWS, U_ROWS)
+    if acc.shape != (p_total, 3) or acc.dtype != torch.float32:
+        raise ValueError(f"acc {tuple(acc.shape)} {acc.dtype}, want ({p_total}, 3) float32")
+    if j_steps < 1:
+        raise ValueError(f"j_steps must be >= 1, got {j_steps}")
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
               max_depth=max_depth, k_steps=k_steps, j_steps=j_steps,
               skip_tmax=skip_tmax, rr=rr)
     if fstate.device.type == "cpu":
-        return grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, **kw)
+        return grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, **kw)
     if fstate.device.type != "cuda":
         raise ValueError(f"unsupported device {fstate.device}")
     from .. import _build
 
     five, n_slots, stride = layout(grid)
     g = grid
-    if g.ctab.shape[1] != 128 or g.ctab.shape[0] % stride:
-        raise ValueError(f"ctab shape {tuple(g.ctab.shape)} vs stride {stride}")
-    if g.atab.shape[1] != 128 or g.atab.shape[0] % 8:
-        raise ValueError(f"atab shape {tuple(g.atab.shape)}")
+    n_cells, n_ids = g.cells.shape[0], g.attrs.shape[0]
+    if stride % 4 or stride < (5 if five else 4) * n_slots:
+        raise ValueError(f"cells {tuple(g.cells.shape)} cannot hold {n_slots} slots")
+    if g.attrs.shape != (n_ids, 8) or (g.tattrs is not None and g.tattrs.shape != (n_ids, 4)):
+        raise ValueError("attrs must be [n, 8] and tattrs [n, 4]")
     if g.gtab.shape[1] != 16 or g.gttab.shape[1] != 16 or g.gscal.numel() < 16:
         raise ValueError("gtab/gttab must be [n, 16] and gscal hold 16 values")
-    if g.ttab is not None and g.ttab.shape != g.atab.shape:
-        raise ValueError("ttab must match atab's shape")
+    if g.gtab.shape[0] > MAX_G or g.gttab.shape[0] > MAX_G:
+        raise ValueError(f"at most {MAX_G} global rows, got {g.gtab.shape[0]} / {g.gttab.shape[0]}")
+    if scal.numel() < 8 or vpr.numel() < 24:
+        raise ValueError("scal must hold 8 int32 and vpr 24 float32 values")
     f32, i32 = torch.float32, torch.int32
-    tensors = dict(scal=scal, vpr=vpr, gscal=g.gscal, gtab=g.gtab,
-                   gttab=g.gttab, ctab=g.ctab, atab=g.atab)
-    dtypes = dict(scal=i32, vpr=f32, gscal=f32, gtab=f32, gttab=f32,
-                  ctab=f32, atab=f32, ttab=f32, fstate=f32, ustate=i32)
-    if g.ttab is not None:
-        tensors["ttab"] = g.ttab
-    tensors.update(fstate=fstate, ustate=ustate)
+    tensors = dict(scal=scal, vpr=vpr, gscal=g.gscal, gtab=g.gtab, gttab=g.gttab,
+                   cells=g.cells, attrs=g.attrs)
+    dtypes = dict(scal=i32, vpr=f32, gscal=f32, gtab=f32, gttab=f32, cells=f32,
+                  attrs=f32, tattrs=f32, fstate=f32, ustate=i32, acc=f32)
+    if g.tattrs is not None:
+        tensors["tattrs"] = g.tattrs
+    tensors.update(fstate=fstate, ustate=ustate, acc=acc)
     ptrs = _cuda_args(tensors, dtypes, fstate.device)
-    if g.ttab is None:
+    if g.tattrs is None:
         ptrs.insert(7, None)
+    for name in ("cells", "attrs", "tattrs"):
+        t = getattr(g, name)
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (read as float4)")
     fout = torch.empty_like(fstate)
     uout = torch.empty_like(ustate)
-    n_pad = fstate.shape[1]
     err = _build.library().rt_grid_megakernel_step(
         *ptrs, fout.data_ptr(), uout.data_ptr(),
-        g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride,
-        n_pad, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps,
+        g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride, n_cells, n_ids,
+        fstate.shape[1], m_slots, n_lanes, p_total, width, max_depth, k_steps,
         j_steps, int(bool(skip_tmax)), *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
@@ -176,41 +195,33 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, *, m_slots, n_lanes,
 grid_megakernel_step.launches = 0
 
 
-def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
+def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
                                n_lanes, p_total, width, max_depth,
                                k_steps=K_STEPS, j_steps=J_STEPS,
                                skip_tmax=False, rr=None, work=None):
     """The plain torch version of ``grid_megakernel_step``: the JAX
     ``_iterate`` (n_calls = 1, no passign) vectorized over lanes, with the
-    same operand order as the CUDA kernel.  ``work``: optional dict that
-    receives the counts of ``megakernel.count_work``."""
+    same operand order as the CUDA kernel, on the same CellTables; ``acc``
+    is updated in place.  ``work``: optional dict that receives the counts
+    of ``megakernel.count_work``."""
     grid_megakernel_step_plain.launches += 1
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()
-    n_pad = f.shape[1]
-    lane = torch.arange(n_pad, dtype=torch.int64, device=dev)
     sc = [int(x) for x in scal.reshape(-1)[:8].tolist()]
     spp, number = sc[S_SPP], sc[S_NUMBER] & rngops.MASK
     y0, seed_y0, offx = sc[S_Y0], sc[S_SEEDY0], sc[S_OFFX]
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
 
     five, n_slots, stride = layout(grid)
-    w = 5 if five else 4
     gs = grid.gscal.reshape(-1)
     cminx, cminz, cmaxx, cmaxz = gs[G_CMINX], gs[G_CMINZ], gs[G_CMAXX], gs[G_CMAXZ]
     icminx, icminz = int(cminx), int(cminz)
     icmaxx, icmaxz = int(cmaxx), int(cmaxz)
     ncz, cy_u, s_, inv_s = gs[G_NCZ], gs[G_CY], gs[G_S], gs[G_INVS]
-    n_cells_pad = grid.ctab.shape[0] // stride * 128
+    n_cells = grid.cells.shape[0]
     gtab = grid.gtab
     gttab = grid.gttab
-
-    def fetch(tab, idx, n_vals, row_stride):
-        """[n_vals, n] values of entries ``idx`` from a block-major table."""
-        rows = (idx >> 7)[None, :] * row_stride + torch.arange(
-            n_vals, device=dev)[:, None]
-        return tab[rows, (idx & 127)[None, :].expand(n_vals, -1)]
 
     ox, oy, oz, dx, dy, dz = (f[R_O + i] for i in range(6))
     fx, fy = f[R_FX], f[R_FY]
@@ -225,6 +236,7 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
     marching = u[U_MARCH] != 0
     icx = u[U_ICX].to(torch.int64)
     icz = u[U_ICZ].to(torch.int64)
+    lane0 = u[U_LANE0].to(torch.int64)
 
     for _ in range(k_steps):
         if not bool(alive.any()):
@@ -275,28 +287,33 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
         icz = torch.where(march0, icz_n.to(torch.int64), icz)
         marching = marching | march0
 
-        # ---- DDA march: j_steps cells --------------------------------------
+        # ---- DDA march: up to j_steps cells ---------------------------------
         step_x = torch.where(dx >= 0, 1, -1)
         step_z = torch.where(dz >= 0, 1, -1)
         dt_x = torch.where(dx == 0.0, big, torch.abs(inv_x) * s_)
         dt_z = torch.where(dz == 0.0, big, torch.abs(inv_z) * s_)
         for _j in range(j_steps):
+            if not bool(marching.any()):
+                break  # the cells below change no lane that is not marching
             cid = ((icx.to(torch.float32) - cminx) * ncz
                    + (icz.to(torch.float32) - cminz)).to(torch.int64)
             # non-marching lanes may hold a stale cell: clamp the fetch index
             # (their values are masked by ``marching`` below)
-            vals = fetch(grid.ctab, cid.clamp(0, n_cells_pad - 1), w * n_slots, stride)
+            rec = grid.cells[cid.clamp(0, n_cells - 1)].T  # [stride, n]
             for s in range(n_slots):
-                b0 = w * s
+                if five:
+                    s_cx, s_cy, s_cz, s_kc = rec[4 * s : 4 * s + 4]
+                    sid = rec[4 * n_slots + s]
+                else:
+                    s_cx, s_cz, s_kc, sid = rec[4 * s : 4 * s + 4]
+                    s_cy = cy_u
                 if work is not None:
-                    count_work(work, quadratics=(marching & (vals[b0 + w - 2] < 1e30)).sum())
-                s_cy = vals[b0 + 1] if five else cy_u
+                    count_work(work, quadratics=(marching & (s_kc < 1e30)).sum())
                 tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                                vals[b0], s_cy, vals[b0 + w - 3],
-                                vals[b0 + w - 2], skip_tmax=skip_tmax, big=big)
+                                s_cx, s_cy, s_cz, s_kc, skip_tmax=skip_tmax, big=big)
                 upd = marching & (tc < t_b)
                 t_b = torch.where(upd, tc, t_b)
-                bkey = torch.where(upd, vals[b0 + w - 1], bkey)
+                bkey = torch.where(upd, sid, bkey)
             t_exit = torch.minimum(t_nx, t_nz)
             cont = marching & (t_exit < t_b) & (t_exit < t_end)
             cross_x = t_nx <= t_nz
@@ -316,9 +333,9 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
         # ---- winner resolution: bkey (sphere id) -> attrs -------------------
         is_direct = bkey >= TAG
         bidx = torch.where(is_direct, bkey - TAG, bkey).to(torch.int64)
-        at = fetch(grid.atab, bidx, 8, 8)  # mat, c0.rgb, attr, center.xyz
-        if grid.ttab is not None:
-            tex, c1x, c1y, c1z = fetch(grid.ttab, bidx, 4, 8)
+        at = grid.attrs[bidx].T  # mat, c0.rgb, attr, center.xyz
+        if grid.tattrs is not None:
+            tex, c1x, c1y, c1z = grid.tattrs[bidx].T
         else:
             # tex / c1 exist only on textured globals (gttab rows)
             bidx_f = torch.where(is_direct, bkey - TAG, -1.0)
@@ -361,20 +378,21 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
         if rr is not None:
             seed_a = torch.where(considered, seed_rr, seed_a)
 
-        # ---- flush the finished pixel's sum into its acc slot --------------
+        # ---- flush the finished pixel's sum into its accumulator slot -----
         more = term & (sidx < spp)
         pix_done = term & ~more
-        if bool(pix_done.any()):
-            for m in range(m_slots):
-                sel = pix_done & (mrow == m)
-                for ch in range(3):
-                    r = R_ACC + 3 * m + ch
-                    f[r] = f[r] + torch.where(sel, cur[ch], 0.0)
+        pix = lane_pixel(mrow, lane0, n_lanes)
+        flush = pix_done & (mrow >= 0) & (mrow < m_slots) & (pix < p_total)
+        if work is not None:
+            count_work(work, flushes=flush.sum())
+        if bool(flush.any()):  # one lane per pixel: the indices are distinct
+            idx = pix[flush]
+            acc[idx] = acc[idx] + torch.stack(cur, dim=1)[flush]
         cur = [torch.where(pix_done, 0.0, cv) for cv in cur]
 
         # ---- regen: next sample or next pixel ------------------------------
         m2 = mrow + pix_done.to(torch.int64)
-        pix2 = m2 * n_lanes + lane
+        pix2 = lane_pixel(m2, lane0, n_lanes)
         adv = pix_done & (m2 < m_slots) & (pix2 < p_total)
         px2 = pix2 % width
         py2 = pix2 // width
@@ -406,11 +424,9 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, *, m_slots,
         depth = torch.where(cont_b, depth + 1, torch.where(regen, 0, depth))
         alive = marching | (seg_done & (cont_b | regen))
 
-    for r, v in zip(range(R_CUR), (ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_,
-                                   tz_, t_b, t_end, t_nx, t_nz, bkey)):
+    for r, v in enumerate((ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_, tz_, t_b,
+                           t_end, t_nx, t_nz, bkey, *cur)):
         f[r] = v
-    for i in range(3):
-        f[R_CUR + i] = cur[i]
     u[U_SEED] = rngops.to_i32(seed)
     for r, v in ((U_M, mrow), (U_SIDX, sidx), (U_DEPTH, depth), (U_ALIVE, alive),
                  (U_MARCH, marching), (U_ICX, icx), (U_ICZ, icz)):

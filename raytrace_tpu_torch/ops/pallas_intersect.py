@@ -12,7 +12,10 @@ returns ``t = BIG`` and row 0's attributes, as the one-hot contraction does.
 ``intersect_shade_pallas`` launches the hand-written CUDA kernel
 (``csrc/intersect.cu``) for CUDA tensors and the plain torch version
 ``intersect_shade_pallas_plain`` for CPU tensors; each counts its launches in
-its ``launches`` attribute.
+its ``launches`` attribute.  Both take the table's valid prefix
+(``n_valid``) when the caller knows that the valid rows come first, as in
+``prepare_scene``'s table; the rows after it are padding that cannot win,
+so scanning only the prefix changes no bit.
 """
 
 from __future__ import annotations
@@ -41,27 +44,41 @@ def _check(o, d, table):
         raise ValueError("o, d and table must be on one device")
 
 
-def intersect_shade_pallas(o, d, table):
+def _rows(table, n_valid):
+    s = table.shape[0]
+    n_valid = s if n_valid is None else int(n_valid)
+    if not 0 <= n_valid <= s:
+        raise ValueError(f"n_valid {n_valid} outside the table's {s} rows")
+    return n_valid
+
+
+def intersect_shade_pallas(o, d, table, n_valid=None):
     """Fused intersect + attribute fetch.
 
-    o, d: [N, 3] f32; table: [S, 24] f32 (see sphere_table).  Returns
-    (t [N], hit [N] bool, attrs [N, 16]), attrs columns per A_*.  CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    o, d: [N, 3] f32; table: [S, 24] f32 (see sphere_table).  ``n_valid``:
+    the count of the table's leading rows that hold every valid row (None:
+    all S rows; a table whose valid rows are not a prefix is scanned whole
+    and its valid column read per row).  Returns (t [N], hit [N] bool,
+    attrs [N, 16]), attrs columns per A_*.  CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
     _check(o, d, table)
+    rows = _rows(table, n_valid)
     if o.device.type == "cpu":
-        return intersect_shade_pallas_plain(o, d, table)
+        return intersect_shade_pallas_plain(o, d, table, n_valid=n_valid)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     from .. import _build
 
     o, d, table = o.contiguous(), d.contiguous(), table.contiguous()
-    n, s = o.shape[0], table.shape[0]
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (rows are read as float4)")
+    n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     attrs = torch.empty((n, 16), dtype=torch.float32, device=o.device)
     if n:
         err = _build.library().rt_intersect_shade(
             o.data_ptr(), d.data_ptr(), table.data_ptr(), t.data_ptr(),
-            attrs.data_ptr(), n, s, o.device.index,
+            attrs.data_ptr(), n, rows, o.device.index,
             torch.cuda.current_stream(o.device).cuda_stream)
         if err:
             raise RuntimeError(
@@ -73,11 +90,15 @@ def intersect_shade_pallas(o, d, table):
 intersect_shade_pallas.launches = 0
 
 
-def intersect_shade_pallas_plain(o, d, table):
+def intersect_shade_pallas_plain(o, d, table, n_valid=None):
     """The plain torch version of ``intersect_shade_pallas``: the TPU
-    kernel's [S, N] expression order, ``argmin`` (lowest index among the
-    minima) and an indexed load of the winner's attribute columns."""
+    kernel's [S, N] expression order over the first ``n_valid`` rows (None:
+    all), ``argmin`` (lowest index among the minima) and an indexed load of
+    the winner's attribute columns."""
     intersect_shade_pallas_plain.launches += 1
+    full = table
+    rows = _rows(table, n_valid)
+    table = table[: max(rows, 1)]  # no rows: row 0 scanned as invalid
     ox, oy, oz = (o[:, i][None, :] for i in range(3))  # [1, N]
     dx, dy, dz = (d[:, i][None, :] for i in range(3))
     a = dx * dx + dy * dy + dz * dz
@@ -86,7 +107,7 @@ def intersect_shade_pallas_plain(o, d, table):
     inv_a = 1.0 / a
     cx, cy, cz = (table[:, c : c + 1] for c in (_C_CX, _C_CY, _C_CZ))  # [S, 1]
     kc = table[:, _C_KC : _C_KC + 1]
-    vld = table[:, _C_VALID : _C_VALID + 1]
+    vld = table[:, _C_VALID : _C_VALID + 1] if rows else torch.zeros_like(table[:, :1])
     cd = cx * dx + cy * dy + cz * dz  # [S, N]
     co = cx * ox + cy * oy + cz * oz
     b = od - cd
@@ -103,7 +124,7 @@ def intersect_shade_pallas_plain(o, d, table):
     t = torch.where(vld > 0.0, t, big)
     t_min = torch.amin(t, dim=0)
     idx = torch.argmin(t, dim=0)  # lowest index among the minima
-    return t_min, t_min < big, table[idx, _C_ATTR0:]
+    return t_min, t_min < big, full[idx, _C_ATTR0:]
 
 
 intersect_shade_pallas_plain.launches = 0

@@ -18,11 +18,13 @@ Backends:
 - ``mega`` / ``grid``: the kernel loop ``_render_band_mega`` — state packed
   into row-major ``[rows, lanes]`` f32/int32 tensors, a host loop over the
   wavefront step (``ops/megakernel.py`` brute force, ``ops/gridkernel.py``
-  grid DDA) until no lane is alive, then the accumulator is unpacked.
+  grid DDA) until no lane is alive.  The brute-force state carries the pixel
+  sums in accumulator rows, unpacked at the end; the grid step adds them
+  into a separate home-order accumulator, and the loop launches over the
+  live lanes only.
 - ``paged``: the same loop over the paged-grid step (``ops/pagedkernel.py``)
   with the live lanes sorted by page and compacted before every launch, and
-  the pixel sums in a separate home-order accumulator
-  (``_render_band_paged``).
+  the pixel sums in a home-order accumulator (``_render_band_paged``).
 
 Each kernel wrapper decides between its CUDA kernel and its plain torch
 version by the state tensor's device.
@@ -41,7 +43,7 @@ import torch
 
 from ..config import MAX_DEPTH, MAX_RAY_COLLISION_DISTANCE, T_MIN
 from ..models.camera import Camera, calculate_viewport
-from ..models.grid import GridTables, build_grid
+from ..models.grid import build_grid, cell_major
 from ..models.paged_grid import (P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ, P_INVS,
                                  P_XHI, P_XLO, P_YHI, P_YLO, P_ZHI, P_ZLO,
                                  PagedGridTables, build_paged_grid)
@@ -78,7 +80,9 @@ class DeviceScene(NamedTuple):
     color1: object  # [S,3] f32
     attr: object  # [S] f32
     table: object  # [S,24] packed sphere table (ops/intersect.sphere_table)
-    grid: object = None  # models.grid.GridTables when the scene fits the grid
+    grid: object = None  # when the scene fits the grid: models.grid.GridTables
+    #                      on the host (prepare_scene), models.grid.CellTables
+    #                      on a device (device_scene_from_numpy)
     paged: object = None  # models.paged_grid.PagedGridTables when the grid
     #                       cannot hold the scene but the paged grid can
 
@@ -142,14 +146,24 @@ def _tables(tables, cls, device):
     return cls(**{f: _tensor(getattr(tables, f), device) for f in cls._fields})
 
 
+def _cell_tables(grid, device):
+    """GridTables (numpy) -> CellTables of tensors on ``device``."""
+    if grid is None:
+        return None
+    ct = cell_major(grid)
+    return ct._replace(**{f: _tensor(getattr(ct, f), device)
+                          for f in ("cells", "attrs", "gtab", "gttab", "gscal", "tattrs")})
+
+
 def device_scene_from_numpy(ds, device) -> DeviceScene:
     """Scene tables onto ``device`` as torch tensors — the port's weight
     import.  ``ds`` is any DeviceScene with numpy-convertible fields: the
     port's ``prepare_scene`` or the JAX package's, including its GridTables
-    and PagedGridTables, field by field."""
+    (re-laid once here into the grid kernel's ``CellTables``) and
+    PagedGridTables, field by field."""
     fields = {f: _tensor(getattr(ds, f), device)
               for f in DeviceScene._fields if f not in ("grid", "paged")}
-    return DeviceScene(**fields, grid=_tables(ds.grid, GridTables, device),
+    return DeviceScene(**fields, grid=_cell_tables(ds.grid, device),
                        paged=_tables(ds.paged, PagedGridTables, device))
 
 
@@ -301,17 +315,18 @@ def render_band(
     return _render_band_spec(scene, vp, backend=backend, **kw)
 
 
-def _shade_inputs(backend, scene: DeviceScene, o, d):
+def _shade_inputs(backend, scene: DeviceScene, o, d, n_valid=None):
     """Closest hit + the hit sphere's attributes (JAX ``_shade_inputs``).
 
     Returns (t [N], hit [N] bool, center [N,3], mat [N] i32, tex [N] i32,
     c0 [N,3], c1 [N,3], attr [N]).  ``pallas`` gets everything from one
-    fused kernel; ``bruteforce`` and ``matmul`` gather from the SoA tables
-    by the winning index."""
+    fused kernel, which scans the table's first ``n_valid`` rows (None:
+    all); ``bruteforce`` and ``matmul`` gather from the SoA tables by the
+    winning index."""
     if backend == "pallas":
         from . import pallas_intersect as pk
 
-        t, hit, a = pk.intersect_shade_pallas(o, d, scene.table)
+        t, hit, a = pk.intersect_shade_pallas(o, d, scene.table, n_valid=n_valid)
         return (t, hit, a[:, pk.A_CX : pk.A_CZ + 1],
                 a[:, pk.A_MAT].to(torch.int32), a[:, pk.A_TEX].to(torch.int32),
                 a[:, pk.A_C0 : pk.A_C0 + 3], a[:, pk.A_C1 : pk.A_C1 + 3],
@@ -361,9 +376,12 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
     alive = torch.full((n,), spp > 0, dtype=torch.bool, device=dev)
     slot_ids = torch.arange(m_slots, device=dev)[None, :]
+    # the valid rows are the table's prefix (prepare_scene)
+    n_valid = int(scene.valid.sum()) if backend == "pallas" else None
 
     while bool(alive.any()):
-        t, hit, center, mat, tex, c0, c1, attr = _shade_inputs(backend, scene, o, d)
+        t, hit, center, mat, tex, c0, c1, attr = _shade_inputs(backend, scene, o, d,
+                                                               n_valid)
 
         point = o + t[:, None] * d  # shader.rint:33
         outward = _normalize3(point - center)  # shader.rchit:41-43
@@ -444,8 +462,9 @@ def _state_module(scene, backend, m_slots):
     if backend == "paged":
         na = pagedkernel.layout(scene.paged)[4]  # carried attr rows
         return pagedkernel, pagedkernel.pf_rows(na)
-    mk = gridkernel if backend == "grid" else megakernel
-    return mk, mk.f_rows(m_slots)
+    if backend == "grid":
+        return gridkernel, gridkernel.F_ROWS
+    return megakernel, megakernel.f_rows(m_slots)
 
 
 def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
@@ -455,9 +474,9 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
 
     Returns (fstate [rows, n_pad] f32, ustate [U_ROWS, n_pad] int32
     holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
-    Slot 0 of lane k is pixel k; ``paged`` state also holds k in its
-    ``U_LANE0`` row and has no accumulator rows (``home_accum`` makes its
-    accumulator, and ``accum_init`` raises).  The first camera ray comes
+    Slot 0 of lane k is pixel k; ``grid`` and ``paged`` state also holds k
+    in its ``U_LANE0`` row and has no accumulator rows (``home_accum`` makes
+    its accumulator, and ``accum_init`` raises).  The first camera ray comes
     from the kernels' own ``camera_rays_rows``, so every sample of the
     kernel path is generated by one formula and the image is bit-identical
     for any M.  (The JAX drivers
@@ -486,9 +505,10 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     fstate[mk.R_FX] = fx0
     fstate[mk.R_FY] = fy0
     fstate[mk.R_THR : mk.R_THR + 3] = 1.0
+    home = backend in ("grid", "paged")
     if accum_init is not None:
-        if backend == "paged":
-            raise ValueError("paged state has no accumulator rows: pass "
+        if home:
+            raise ValueError(f"{backend} state has no accumulator rows: pass "
                              "accum_init to home_accum")
         flat = accum_init.reshape(p_total, 3).to(torch.float32)
         pad = n * m_slots - p_total
@@ -501,7 +521,7 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     ustate[mk.U_SEED] = rngops.to_i32(seed)
     ustate[mk.U_SIDX] = 1
     ustate[mk.U_ALIVE] = ((lane < n) & (spp > 0)).to(torch.int32)
-    if backend == "paged":
+    if home:
         ustate[mk.U_LANE0] = lane.to(torch.int32)
 
     s = np.zeros((1, 8), np.int64)  # scalar slots: megakernel.S_*
@@ -518,8 +538,8 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
 
 
 def home_accum(accum_init, p_total, device) -> torch.Tensor:
-    """The paged band's pixel sums [p_total, 3] f32 in home (pixel) order:
-    ``accum_init`` copied, or zeros.  The paged step adds each finished
+    """A grid or paged band's pixel sums [p_total, 3] f32 in home (pixel)
+    order: ``accum_init`` copied, or zeros.  The step adds each finished
     pixel's sum into its row in place; the rows are never permuted."""
     if accum_init is None:
         return torch.zeros((p_total, 3), dtype=torch.float32, device=device)
@@ -527,13 +547,12 @@ def home_accum(accum_init, p_total, device) -> torch.Tensor:
                                              copy=True)
 
 
-def unpack_accum(fstate, *, backend, band_h, width, m_slots, n_lanes, p_total):
-    """The accumulator rows of a finished mega / grid state ->
+def unpack_accum(fstate, *, band_h, width, m_slots, n_lanes, p_total):
+    """The accumulator rows of a finished brute-force (mega) state ->
     [band_h, width, 3]."""
-    from . import gridkernel, megakernel
+    from . import megakernel
 
-    mk = gridkernel if backend == "grid" else megakernel
-    acc = fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots]
+    acc = fstate[megakernel.R_ACC : megakernel.R_ACC + 3 * m_slots]
     return (acc[:, :n_lanes]
             .reshape(m_slots, 3, n_lanes)
             .permute(0, 2, 1)
@@ -545,37 +564,51 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                       number, accum_init, max_depth, pixels_per_lane,
                       skip_tmax, backend, rr=None):
     """Kernel loop: pack the [rows, lanes] state, launch the wavefront step
-    until no lane is alive (one host sync per launch), unpack the
-    accumulator.  backend="mega" brute-forces the sphere table
-    (ops/megakernel.py); backend="grid" runs the uniform-grid DDA
-    (ops/gridkernel.py, requires grid tables) with identical results."""
+    until no lane is alive (one host sync per launch).  backend="mega"
+    brute-forces the sphere table (ops/megakernel.py) and its accumulator
+    rows are unpacked at the end; backend="grid" runs the uniform-grid DDA
+    (ops/gridkernel.py, requires grid tables) with identical results: its
+    step adds the pixel sums into a home-order accumulator, and before every
+    launch the live lanes are compacted (in lane order, their count read in
+    the launch's one host sync), so no block runs for a dead lane."""
     from . import gridkernel, megakernel
 
     if backend == "grid" and scene.grid is None:
         raise ValueError("grid backend requires a grid-able scene")
-    mk = gridkernel if backend == "grid" else megakernel
     fstate, ustate, scal, vpr, geom = pack_state(
         scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
         seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
-        accum_init=accum_init, pixels_per_lane=pixels_per_lane)
-    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
-                  k_steps=mk.K_STEPS)
+        accum_init=None if backend == "grid" else accum_init,
+        pixels_per_lane=pixels_per_lane)
     if backend == "grid":
-        def step(f, u):
-            return gridkernel.grid_megakernel_step(
-                scal, vpr, scene.grid, f, u, **common)
-    else:
-        atab = scene.table[:, 8:24].T.contiguous()
-        # the valid rows are the table's prefix (prepare_scene)
-        n_valid = int(scene.valid.sum())
+        acc = home_accum(accum_init, geom["p_total"], fstate.device)
+        common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
+                      k_steps=gridkernel.K_STEPS, j_steps=gridkernel.J_STEPS)
+        while True:
+            live = live_lanes(ustate[gridkernel.U_ALIVE])
+            if live.numel() == 0:
+                break
+            if live.numel() < ustate.shape[1]:
+                fstate, ustate = gather_lanes(fstate, ustate, live)
+            fstate, ustate = gridkernel.grid_megakernel_step(
+                scal, vpr, scene.grid, fstate, ustate, acc, **common)
+        return acc.reshape(band_h, width, 3)
 
-        def step(f, u):
-            return megakernel.megakernel_step(
-                scal, vpr, scene.table, atab, f, u, n_valid=n_valid, **common)
+    atab = scene.table[:, 8:24].T.contiguous()
+    # the valid rows are the table's prefix (prepare_scene)
+    n_valid = int(scene.valid.sum())
+    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
+                  k_steps=megakernel.K_STEPS)
+    while bool((ustate[megakernel.U_ALIVE] != 0).any()):
+        fstate, ustate = megakernel.megakernel_step(
+            scal, vpr, scene.table, atab, fstate, ustate, n_valid=n_valid, **common)
+    return unpack_accum(fstate, band_h=band_h, **geom)
 
-    while bool((ustate[mk.U_ALIVE] != 0).any()):
-        fstate, ustate = step(fstate, ustate)
-    return unpack_accum(fstate, backend=backend, band_h=band_h, **geom)
+
+def live_lanes(alive_row):
+    """The lanes whose alive row is set, in lane order: [n_live] int64
+    indices.  Their count is the grid driver's one host sync per launch."""
+    return torch.nonzero(alive_row).reshape(-1)
 
 
 def _morton(sx, sz):

@@ -31,6 +31,10 @@ _TARGET_LANES = {
     "mega": 1 << 21, "grid": 1 << 21, "paged": 1 << 21,
 }
 CPU_LANES_TARGET = 1 << 12  # the plain steps' lane target on the CPU
+# lanes per thread slot of the card, by backend: the grid driver launches
+# over its live lanes only, and its 1080p x 16 spp frame took the least
+# kernel time at M=2, 4x the card's 2048 threads per SM (PERF.md, PR 4)
+LANES_PER_THREAD = {"grid": 4}
 M_MAX = 64  # pixels-per-lane cap
 
 
@@ -74,12 +78,14 @@ def render_device(device) -> torch.device:
     return device
 
 
-def lanes_target(device: torch.device) -> int:
-    """Resident-lane target: every SM full of threads on a CUDA device, a
-    small fixed count for the plain steps on the CPU."""
+def lanes_target(device: torch.device, backend: str = "mega") -> int:
+    """Lane target of a band: on a CUDA device every SM's thread slots times
+    ``LANES_PER_THREAD`` of the backend, a small fixed count for the plain
+    steps on the CPU."""
     if device.type == "cuda":
         p = torch.cuda.get_device_properties(device)
-        return p.multi_processor_count * p.max_threads_per_multi_processor
+        return (p.multi_processor_count * p.max_threads_per_multi_processor
+                * LANES_PER_THREAD.get(backend, 1))
     return CPU_LANES_TARGET
 
 
@@ -108,8 +114,8 @@ class Renderer:
             self.pixels_per_lane = config.pixels_per_lane
         else:
             # fewest pixels per lane that keeps the lane count within the
-            # device's resident-thread target (output is identical for any M)
-            target = lanes_target(self.device)
+            # backend's lane target (output is identical for any M)
+            target = lanes_target(self.device, self.backend)
             self.pixels_per_lane = int(np.clip(-(-(w * h) // target), 1, M_MAX))
         target = _TARGET_LANES.get(self.backend, 1 << 14)
         self.chunk_rows = max(1, min(h, (target * self.pixels_per_lane) // max(w, 1)))

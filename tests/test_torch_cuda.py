@@ -10,13 +10,16 @@ Each test packs a state, takes one launch of the kernel and one call of its
 plain version from it, and requires every state row to be bit-equal
 (NaN == NaN): the kernels and the plain versions run the same IEEE op
 sequence (nvcc --fmad=false, no fast math; CUDA's sinf on both sides).
-The cases cover what the smoke run does not: the 5-value slot layout, the
-textured-field ``ttab`` path, pitch 2's wider 4-value cells, fast mode, a
-carried accumulator and tables larger than one 512-row block; for the paged
-kernel all four instances of its template (varied-height and textured page
-layouts) on the driver's sorted and compacted lanes, its home-order
-accumulator and the sort key it emits; for the fused intersect kernel a
-table of several shared-memory chunks.
+The cases cover what the smoke run does not: for the grid kernel the
+cell-major records of the 5-value slot layout, the textured field's
+``tattrs`` and pitch 2's wider 4-value cells, on the driver's compacted live
+lanes with its home-order accumulator, and the compacted driver itself;
+fast mode, a carried accumulator and tables larger than one 512-row block;
+for the paged kernel all four instances of its template (varied-height and
+textured page layouts) on the driver's sorted and compacted lanes, its
+home-order accumulator and the sort key it emits; for the fused intersect
+kernel the valid-prefix scan, a table of several shared-memory chunks and
+one whose valid rows are not a prefix.
 """
 
 import pytest
@@ -78,17 +81,26 @@ def _state(ds, backend, *, w=128, h=72, m=2, spp=2, accum=None):
 @pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
 @pytest.mark.parametrize("name", list(SCENES))
 def test_grid_kernel_matches_plain(cuda, name, rr):
+    """Four launches along one render on the driver's compacted live lanes
+    (lane0 != lane once lanes died), each compared with the plain version:
+    the state and the home-order accumulator."""
     make, pitch = SCENES[name]
     ds = trace.device_scene_from_numpy(trace.prepare_scene(make(0.0), grid_pitch=pitch), cuda)
     assert ds.grid is not None
     f, u, scal, vpr, geom = _state(ds, "grid")
-    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr)
-    step_k = lambda f_, u_: gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f_, u_, **kw)
-    step_p = lambda f_, u_: gridkernel.grid_megakernel_step_plain(scal, vpr, ds.grid, f_, u_, **kw)
-    for _ in range(3):  # three launches along one render, compared each time
-        out_k, out_p = _launch_pair(step_k, step_p, f, u)
+    acc = trace.home_accum(torch.rand((72, 128, 3), device=cuda), geom["p_total"], cuda)
+    acc0 = acc.clone()
+    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr, k_steps=10)
+    for _ in range(4):
+        f, u = trace.gather_lanes(f, u, trace.live_lanes(u[gridkernel.U_ALIVE]))
+        acc_k, acc_p = acc.clone(), acc.clone()
+        out_k = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc_k, **kw)
+        out_p = gridkernel.grid_megakernel_step_plain(scal, vpr, ds.grid, f, u, acc_p, **kw)
+        torch.cuda.synchronize()
         _assert_same(out_k, out_p)
-        f, u = out_k
+        assert torch.equal(acc_k, acc_p)
+        (f, u), acc = out_k, acc_k
+    assert not torch.equal(acc, acc0)  # pixels were flushed
 
 
 @pytest.mark.gpu
@@ -138,16 +150,19 @@ def test_renders_match_plain_renders(cuda):
 def test_wrapper_counts_and_checks(cuda):
     ds = trace.device_scene_from_numpy(trace.prepare_scene(generate_random_scene(0.0)), cuda)
     f, u, scal, vpr, geom = _state(ds, "grid", w=32, h=18, m=1)
+    acc = trace.home_accum(None, geom["p_total"], cuda)
     kw = dict(geom, max_depth=8, skip_tmax=True)
     before = gridkernel.grid_megakernel_step.launches
     plain_before = gridkernel.grid_megakernel_step_plain.launches
-    gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, **kw)
+    gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc, **kw)
     assert gridkernel.grid_megakernel_step.launches == before + 1
     assert gridkernel.grid_megakernel_step_plain.launches == plain_before
     with pytest.raises(TypeError):
-        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f.double(), u, **kw)
+        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f.double(), u, acc, **kw)
     with pytest.raises(ValueError):
-        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f[:, ::2], u[:, ::2], **kw)
+        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f[:, ::2], u[:, ::2], acc, **kw)
+    with pytest.raises(ValueError):
+        gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc[1:], **kw)
 
 
 def _field(y_range=None, textured=False):
@@ -198,18 +213,24 @@ def test_paged_kernel_matches_plain(cuda, name, rr):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["book", "field2000"])
+@pytest.mark.parametrize("name", ["book_prefix", "book", "field2000", "field2000_holes"])
 def test_intersect_kernel_matches_plain(cuda, name):
-    """Seeded rays; the 2048-row table spans four shared-memory chunks."""
-    scene = {"book": lambda: generate_random_scene(0.0),
-             "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0)}[name]()
+    """Seeded rays (a count that no block size divides); the book table
+    scanned over its valid prefix or whole, the 2048-row table (two
+    shared-memory chunks) whole, and the same with every third row invalid,
+    whose valid rows are no prefix.  The plain version scans every row."""
+    scene = (generate_random_scene(0.0) if name.startswith("book")
+             else random_sphere_field(2000, seed=1, extent=7.0))
     table = torch.from_numpy(intersect.sphere_table(scene)).to(cuda)
+    if name.endswith("holes"):
+        table[::3, 4] = 0.0
+    n_valid = int(scene.n_spheres) if name.endswith("prefix") else None
     g = torch.Generator().manual_seed(3)
-    o = (torch.randn((50_000, 3), generator=g) * 4 + torch.tensor([0.0, 3.0, 0.0])).to(cuda)
-    d = torch.randn((50_000, 3), generator=g).to(cuda)
+    o = (torch.randn((50_001, 3), generator=g) * 4 + torch.tensor([0.0, 3.0, 0.0])).to(cuda)
+    d = torch.randn((50_001, 3), generator=g).to(cuda)
     d = d / d.norm(dim=1, keepdim=True)
     before = pallas_intersect.intersect_shade_pallas.launches
-    tk, hk, ak = pallas_intersect.intersect_shade_pallas(o, d, table)
+    tk, hk, ak = pallas_intersect.intersect_shade_pallas(o, d, table, n_valid=n_valid)
     tp, hp, ap = pallas_intersect.intersect_shade_pallas_plain(o, d, table)
     torch.cuda.synchronize()
     assert pallas_intersect.intersect_shade_pallas.launches == before + 1

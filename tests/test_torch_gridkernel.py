@@ -6,9 +6,17 @@ from the same packed state, and the port's grid renders against the port's
 brute-force megakernel: bit-identical at depth 4 and at most 2% of pixels at
 depth 50 (the rules of tests/test_grid.py), on the book scene, on a
 varied-height field (the 5-value slot layout), on a field with textured
-spheres (the ``ttab`` fetch) and at pitch 2.  The CUDA
-kernel itself is compared with the plain version on the card
+spheres (the ``ttab`` fetch) and at pitch 2.  The cell-major tables the step
+reads (``models.grid.cell_major``) equal the block-major ones value for
+value, and the image is bit-identical with and without the driver's
+live-lane compaction, across M and across ``j_steps``.  The CUDA kernel
+itself is compared with the plain version on the card
 (tests/test_torch_cuda.py and chip_smoke.py).
+
+The port's grid state keeps no accumulator rows (the pixel sums go into a
+home-order accumulator) and no unused rows; ``_jax_layout`` maps its state
+and accumulator onto the JAX state's rows for the step comparisons, as
+test_torch_paged.py does.
 
 Tolerance of the step comparison: as in test_torch_megakernel.py — XLA:CPU's
 FMA contraction and rsqrt rewrite leave the geometry rows (o, d, t_end,
@@ -29,6 +37,7 @@ from raytrace_tpu.models.scene import generate_random_scene as j_book
 from raytrace_tpu.models.scene import random_sphere_field as j_field
 from raytrace_tpu.ops import gridkernel as jgrid
 from raytrace_tpu.ops import trace as jtrace
+from raytrace_tpu_torch.models.grid import cell_major
 from raytrace_tpu_torch.models.scene import (CHECKERED, generate_random_scene,
                                              random_sphere_field)
 from raytrace_tpu_torch.ops import gridkernel, trace
@@ -37,8 +46,10 @@ from raytrace_tpu_torch.runtime.renderer import reference_camera, resolve_backen
 torch.set_num_threads(1)
 
 W, H = 64, 36
-DISCRETE_F_ROWS = [gridkernel.R_FX, gridkernel.R_FY, gridkernel.R_THR,
-                   gridkernel.R_THR + 1, gridkernel.R_THR + 2]
+# rows of the JAX f32 state (the port's rows 0-15 are its rows 0-15, the
+# port's cur its rows 18-20)
+DISCRETE_F_ROWS = [jgrid.R_FX, jgrid.R_FY, jgrid.R_THR, jgrid.R_THR + 1, jgrid.R_THR + 2]
+PORT_TO_JAX = list(range(gridkernel.R_CUR)) + [jgrid.R_CUR + i for i in range(3)]
 
 
 @pytest.fixture(scope="module")
@@ -55,31 +66,51 @@ def _render(ds_np, backend, *, depth, spp, m=2, w=W, h=H):
         skip_tmax=True).numpy()
 
 
+def _jax_layout(f, acc, m_slots, n_lanes):
+    """The JAX package's f32 grid state rows from the port's state and
+    home-order accumulator, for lanes in home order (lane k is lane0 k)."""
+    f = f.numpy()
+    out = np.zeros((jgrid.f_rows(m_slots), f.shape[1]), np.float32)
+    out[PORT_TO_JAX] = f
+    pix = np.arange(m_slots)[:, None] * n_lanes + np.arange(n_lanes)[None, :]
+    acc_pad = np.zeros((m_slots * n_lanes, 3), np.float32)
+    acc_pad[: acc.shape[0]] = acc.numpy()
+    out[jgrid.R_ACC : jgrid.R_ACC + 3 * m_slots, :n_lanes] = (
+        acc_pad[pix.reshape(-1)].reshape(m_slots, n_lanes, 3)
+        .transpose(0, 2, 1).reshape(3 * m_slots, n_lanes))
+    return out
+
+
 def _steps(book, k_steps):
     """(port state, JAX state, packed input, n_lanes) after one step of
     ``k_steps`` iterations, j_steps=2, from the same packed state: one JAX
-    TILE (4096 lanes), M=3."""
+    TILE (4096 lanes), M=3; f32 states in the JAX layout, u32 rows 0-7."""
     ds = trace.device_scene_from_numpy(book, "cpu")
     vp = trace.viewport_arrays(reference_camera(), 64, 48)
     f, u, scal, vpr, geom = trace.pack_state(
         ds, vp, backend="grid", band_h=48, width=64, y0=0, seed_y0=0,
         offset_x=0, spp=2, number=0, pixels_per_lane=3, lane_pad=jgrid.TILE)
+    assert torch.equal(u[gridkernel.U_LANE0], torch.arange(f.shape[1], dtype=torch.int32))
     kw = dict(geom, max_depth=12, skip_tmax=True, k_steps=k_steps, j_steps=2)
+    acc0 = trace.home_accum(None, geom["p_total"], "cpu")
+    f0 = _jax_layout(f, acc0, 3, geom["n_lanes"])
     g = book.grid
     u12 = np.zeros((12, f.shape[1]), np.uint32)  # JAX rows 8-11: call merge
-    u12[:8] = u.numpy().view(np.uint32)
+    u12[:8] = u.numpy()[:8].view(np.uint32)
     u12[jgrid.U_PEND] = 1  # fresh-seed rows start stale, as JAX's _render_band_mega sets them
     fj, uj = jgrid.grid_megakernel_step(
         scal.numpy(), vpr.numpy(), g.gscal, g.gtab, g.gttab, g.ctab, g.atab,
-        f.numpy(), u12, None, None, interpret=True, five=False, n_slots=4, **kw)
+        f0, u12, None, None, interpret=True, five=False, n_slots=4, **kw)
     fj = np.asarray(fj)
     uj = np.asarray(uj)[:8].view(np.int32)
     before = gridkernel.grid_megakernel_step_plain.launches
-    fp, up = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, **kw)
+    acc = acc0.clone()
+    fp, up = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc, **kw)
     assert gridkernel.grid_megakernel_step_plain.launches == before + 1
-    fp, up = fp.numpy(), up.numpy()
+    assert torch.equal(up[gridkernel.U_LANE0], u[gridkernel.U_LANE0])
+    fp, up = _jax_layout(fp, acc, 3, geom["n_lanes"]), up.numpy()[:8]
     assert fp.shape == fj.shape and up.shape == uj.shape
-    return fp, up, fj, uj, (f.numpy(), u.numpy()), geom["n_lanes"]
+    return fp, up, fj, uj, (f0, u.numpy()[:8]), geom["n_lanes"]
 
 
 def _discrete_same(fp, up, fj, uj):
@@ -90,8 +121,7 @@ def _close_share(a, b, tol):
     return float(np.isclose(a, b, rtol=tol, atol=tol, equal_nan=True).all(axis=0).mean())
 
 
-GEOM_ROWS = {"o": slice(0, 3), "d": slice(3, 6),
-             "t": slice(gridkernel.R_TB, gridkernel.R_BKEY)}
+GEOM_ROWS = {"o": slice(0, 3), "d": slice(3, 6), "t": slice(jgrid.R_TB, jgrid.R_BKEY)}
 
 
 def test_step_matches_jax_interpret(book):
@@ -108,9 +138,9 @@ def test_step_matches_jax_interpret(book):
     # flushed a sample whose path had split and rejoined), the geometry rows
     # to XLA's float noise (o, d measured 98.2% / 98.1% within 1e-3; the
     # march's t rows 98.5% within 1e-2)
-    cur = slice(gridkernel.R_CUR, gridkernel.R_CUR + 3)
-    acc = slice(gridkernel.R_ACC, gridkernel.R_ACC + 9)
-    assert np.array_equal(fp[gridkernel.R_BKEY, same], fj[gridkernel.R_BKEY, same])
+    cur = slice(jgrid.R_CUR, jgrid.R_CUR + 3)
+    acc = slice(jgrid.R_ACC, jgrid.R_ACC + 9)
+    assert np.array_equal(fp[jgrid.R_BKEY, same], fj[jgrid.R_BKEY, same])
     assert np.array_equal(fp[cur, same], fj[cur, same])
     assert (fp[acc, same] == fj[acc, same]).all(axis=0).mean() >= 0.96
     for name, rows in GEOM_ROWS.items():
@@ -128,7 +158,7 @@ def test_first_iteration_matches_jax_interpret(book):
     fp, up, fj, uj = fp[:, :n], up[:, :n], fj[:, :n], uj[:, :n]
     same = _discrete_same(fp, up, fj, uj)
     assert same.mean() >= 0.99, f"discrete state equal on {same.mean():.2%} of lanes"
-    geom = [0, 1, 2, 3, 4, 5, gridkernel.R_TB]
+    geom = [0, 1, 2, 3, 4, 5, jgrid.R_TB]
     rest = [r for r in range(fp.shape[0]) if r not in geom]
     assert np.array_equal(fp[rest][:, same], fj[rest][:, same])
     assert _close_share(fp[geom][:, same], fj[geom][:, same], 1e-4) >= 0.88
@@ -199,3 +229,126 @@ def test_jax_built_tables_give_the_same_image():
     from_jax = _render(jtrace.prepare_scene(j_book(0.0)), "grid", depth=8, spp=1)
     assert np.array_equal(own, from_jax)
 
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_cell_major_tables_equal_block_major(name):
+    """Every cell, slot and value of the cell records, and every sphere's
+    attributes, is the block-major entry at row (c >> 7) * stride + v, lane
+    c & 127 (attributes: row (i >> 7) * 8 + v), bit for bit; the record's
+    other floats are 0."""
+    g = SCENES[name]().grid
+    ct = cell_major(g)
+    five, n_slots, stride = gridkernel.layout(ct)
+    w = 5 if five else 4
+    assert five == (g.has_cy is not None)
+    assert stride == -(-w * n_slots // 8) * 8 and stride % 4 == 0
+    cells = np.arange(g.ctab.shape[0] // stride * 128)
+    assert ct.cells.shape == (cells.size, stride)
+    used = np.zeros(stride, bool)
+    for slot in range(n_slots):
+        for v in range(w):
+            ref = g.ctab[(cells >> 7) * stride + slot * w + v, cells & 127]
+            # 4-value: (cx, cz, kc, id) at 4s; 5-value: (cx, cy, cz, kc) at 4s
+            # and the id at 4 * n_slots + s
+            col = 4 * n_slots + slot if five and v == 4 else 4 * slot + v
+            assert np.array_equal(_bits(ct.cells[:, col]), _bits(ref)), (slot, v)
+            used[col] = True
+    assert not ct.cells[:, ~used].any()
+    ids = np.arange(ct.attrs.shape[0])
+    assert ct.attrs.shape == (g.atab.shape[0] // 8 * 128, 8)
+    for v in range(8):
+        assert np.array_equal(_bits(ct.attrs[:, v]), _bits(g.atab[(ids >> 7) * 8 + v, ids & 127]))
+    assert (ct.tattrs is None) == (g.ttab is None) == (name != "textured_field")
+    if ct.tattrs is not None:
+        for v in range(4):
+            assert np.array_equal(_bits(ct.tattrs[:, v]),
+                                  _bits(g.ttab[(ids >> 7) * 8 + v, ids & 127]))
+    for field in ("gtab", "gttab", "gscal"):
+        assert np.array_equal(_bits(getattr(ct, field)), _bits(getattr(g, field)))
+
+
+def _grid_loop(ds_np, *, compact, k_steps, j_steps, m=2, depth=5, spp=2):
+    """The grid step driven by hand: before every launch of ``k_steps``
+    iterations the live lanes are compacted (``compact``), or never (every
+    lane stays, in home order, until none is alive)."""
+    ds = trace.device_scene_from_numpy(ds_np, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), W, H)
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, vp, backend="grid", band_h=H, width=W, y0=0, seed_y0=0,
+        offset_x=0, spp=spp, number=0, pixels_per_lane=m)
+    acc = trace.home_accum(None, geom["p_total"], "cpu")
+    kw = dict(geom, max_depth=depth, skip_tmax=True, k_steps=k_steps, j_steps=j_steps)
+    while bool((u[gridkernel.U_ALIVE] != 0).any()):
+        if compact:
+            f, u = trace.gather_lanes(f, u, trace.live_lanes(u[gridkernel.U_ALIVE]))
+        f, u = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc, **kw)
+    return acc.reshape(H, W, 3).numpy()
+
+
+LOOPS = {  # (compact, k_steps, j_steps)
+    "never_compacted": (False, gridkernel.K_STEPS, 2),
+    "compacted_every_iteration": (True, 1, 2),
+    "one_cell_per_iteration": (True, gridkernel.K_STEPS, 1),
+    "four_cells_per_iteration": (True, gridkernel.K_STEPS, 4),
+    "march_until_the_segment_closes": (True, gridkernel.K_STEPS, 1 << 30),
+}
+
+
+@pytest.mark.parametrize("how", list(LOOPS))
+def test_compaction_and_j_steps_leave_the_image(book, how):
+    """The driver compacts the live lanes before every launch; never
+    compacting, compacting before every single iteration, or marching 1, 4
+    or any number of cells per iteration gives the same image bit for bit
+    (M=2, depth 5)."""
+    compact, k, j = LOOPS[how]
+    ref = _render(book, "grid", depth=5, spp=2)
+    assert np.array_equal(_grid_loop(book, compact=compact, k_steps=k, j_steps=j), ref)
+
+
+def test_grid_state_has_no_accumulator_rows(book):
+    """The grid band's state is 19 f32 + 9 int32 rows for any M, the last
+    int32 row the lane's home index; ``accum_init`` goes to the home-order
+    accumulator, and the progressive sum equals two calls' sums."""
+    ds = trace.device_scene_from_numpy(book, "cpu")
+    vp = trace.viewport_arrays(reference_camera(), W, H)
+    for m in (1, 5):
+        f, u, *_ = trace.pack_state(ds, vp, backend="grid", band_h=H, width=W, y0=0,
+                                    seed_y0=0, offset_x=0, spp=1, number=0,
+                                    pixels_per_lane=m)
+        assert f.shape[0] == gridkernel.F_ROWS == 19 and u.shape[0] == gridkernel.U_ROWS == 9
+        assert torch.equal(u[gridkernel.U_LANE0], torch.arange(u.shape[1], dtype=torch.int32))
+    with pytest.raises(ValueError, match="home_accum"):
+        trace.pack_state(ds, vp, backend="grid", band_h=H, width=W, y0=0, seed_y0=0,
+                         offset_x=0, spp=1, number=0, accum_init=torch.zeros((H, W, 3)))
+    one = torch.from_numpy(_render(book, "grid", depth=4, spp=1))
+    two = trace.render_band(ds, vp, band_h=H, width=W, y0=0, seed_y0=0, offset_x=0,
+                            spp=1, number=0, accum_init=one, max_depth=4,
+                            backend="grid", pixels_per_lane=2, skip_tmax=True)
+    assert torch.equal(two, one + one)
+
+
+def test_driver_launches_over_live_lanes_only(book, monkeypatch):
+    """Every launch of the grid driver gets only lanes that are alive, fewer
+    as the band drains, and the last launch leaves none alive."""
+    seen = []
+    step = gridkernel.grid_megakernel_step
+
+    def spy(scal, vpr, grid, f, u, acc, **kw):
+        seen.append((u.shape[1], int((u[gridkernel.U_ALIVE] != 0).sum())))
+        out = step(scal, vpr, grid, f, u, acc, **kw)
+        seen[-1] += (int((out[1][gridkernel.U_ALIVE] != 0).sum()),)
+        return out
+
+    monkeypatch.setattr(gridkernel, "grid_megakernel_step", spy)
+    monkeypatch.setattr(gridkernel, "K_STEPS", 4)  # several launches at this size
+    _render(book, "grid", depth=6, spp=2)
+    n_pad = -(-(W * H // 2) // trace.LANE_PAD) * trace.LANE_PAD
+    assert seen[0][0] == n_pad and len(seen) > 2
+    assert all(n == alive for n, alive, _ in seen[1:])
+    assert [n for n, _, _ in seen] == sorted((n for n, _, _ in seen), reverse=True)
+    assert seen[-1][0] < seen[0][1] and seen[-1][2] == 0

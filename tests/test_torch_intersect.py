@@ -155,6 +155,27 @@ def test_edge_cases(name):
     assert np.allclose(p_t, j_t, rtol=1e-5, atol=0)
 
 
+def test_valid_prefix_scan_changes_no_bit(rays):
+    """``n_valid``: scanning only the table's valid prefix (the book table's
+    488 of 512 rows) gives every ray the same t, hit and attributes as
+    scanning every row; an empty prefix is a miss with row 0's attributes;
+    a prefix longer than the table raises."""
+    o, d, sc, table = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                       for x in rays)
+    n = int(sc.n_spheres)
+    assert n < table.shape[0]
+    full = pallas_intersect.intersect_shade_pallas(o, d, table)
+    pref = pallas_intersect.intersect_shade_pallas(o, d, table, n_valid=n)
+    assert bool(full[1].any())
+    for a, b in zip(full, pref):
+        assert torch.equal(a, b)
+    t0, hit0, a0 = pallas_intersect.intersect_shade_pallas(o, d, table, n_valid=0)
+    assert not bool(hit0.any()) and bool((t0 == float(intersect.BIG)).all())
+    assert torch.equal(a0, table[0, 8:].expand_as(a0))
+    with pytest.raises(ValueError, match="n_valid"):
+        pallas_intersect.intersect_shade_pallas(o, d, table, n_valid=table.shape[0] + 1)
+
+
 def test_padding_rows_never_hit():
     sc = three_sphere_scene()
     table = intersect.sphere_table(sc)

@@ -91,7 +91,8 @@ def test_tall_field_uses_five_value_layout():
 
 def test_device_scene_from_jax_scene_matches_port():
     """The port's weight import: the JAX DeviceScene (numpy fields incl. its
-    GridTables) becomes the same torch tensors as the port's own prep."""
+    GridTables, re-laid into the kernel's CellTables) becomes the same torch
+    tensors as the port's own prep."""
     sc = jscene.generate_random_scene(0.0)
     from_jax = ttrace.device_scene_from_numpy(jtrace.prepare_scene(sc), "cpu")
     own = ttrace.device_scene_from_numpy(ttrace.prepare_scene(sc), "cpu")
@@ -99,9 +100,12 @@ def test_device_scene_from_jax_scene_matches_port():
         if field in ("grid", "paged"):
             continue
         assert torch.equal(getattr(from_jax, field), getattr(own, field)), field
-    for field in tgrid.GridTables._fields:
+    assert isinstance(own.grid, tgrid.CellTables)
+    for field in tgrid.CellTables._fields:
         a, b = getattr(from_jax.grid, field), getattr(own.grid, field)
         assert (a is None) == (b is None)
-        if a is not None:
+        if torch.is_tensor(a):
             assert torch.equal(a, b), field
+        else:
+            assert a == b, field
     assert from_jax.paged is None and own.paged is None

@@ -2,13 +2,15 @@
 """Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
 Run from the repository root: ``python3 torch_breakdown.py [--scene
-book|dense|gridless]``.  It needs one CUDA device and builds the port's
-kernels on first use.  ``--scene book`` (the default) times the book scene at
-1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main path);
-``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160 and 8
-spp on the paged kernel (``render_image``'s dense-scene path); ``--scene
-gridless`` times ``three_sphere_scene()`` at 1920x1080 and 16 spp on the
-brute-force megakernel.  Each step is timed three times:
+book|dense|gridless|pallas]``.  It needs one CUDA device and builds the
+port's kernels on first use.  ``--scene book`` (the default) times the book
+scene at 1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main
+path); ``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160
+and 8 spp on the paged kernel (``render_image``'s dense-scene path);
+``--scene gridless`` times ``three_sphere_scene()`` at 1920x1080 and 16 spp
+on the brute-force megakernel; ``--scene pallas`` times the book scene at
+1920x1080 and 2 spp on the ``pallas`` backend (the eager spec loop around the
+fused intersect kernel).  Each step is timed three times:
 
 - the host steps of a render: scene generation, ``prepare_scene`` (for the
   dense scene also its parts: the flat-grid attempt that returns None and
@@ -17,15 +19,23 @@ brute-force megakernel.  Each step is timed three times:
 - ``Renderer.render`` in exact and fast mode, steady state after one warm-up
   (host clock around work that ends in ``torch.cuda.synchronize()``);
 - one instrumented render per mode: each kernel launch timed with CUDA
-  events, with the number of lanes alive going into it; for the paged
-  driver also the first launch's sort key, and the sort and the gather of
-  the live lanes before each launch, timed the same way;
+  events, with the number of lanes alive going into it, and the tail: the
+  launches that start with under 97% of the band's lanes alive, their
+  kernel time and its share; for the paged driver also the first launch's
+  sort key, and the sort and the gather of the live lanes before each
+  launch, timed the same way; for the grid driver also the compaction
+  (``live_lanes``, ``gather_lanes``), and the same render with compaction
+  off (every lane launched until none is alive, the driver of PR 3); for
+  ``pallas`` the kernel time against the host time per spec-loop iteration;
 - the tonemap and copy to the host, and the PNG encode;
 - the same exact frame on the brute-force megakernel (book scene only: on
   100k spheres it would take minutes);
 - the exact frame's wall and launches at each iteration count per launch of
   ``K_SWEEP`` (dense: the paged interval ``scaled_k``; gridless:
-  ``megakernel.K_STEPS``); output bits do not depend on it;
+  ``megakernel.K_STEPS``); for the book scene the same, and the kernel
+  time, over every combination of ``K_SWEEP`` (``gridkernel.K_STEPS``),
+  ``J_SWEEP`` (``gridkernel.J_STEPS``, cells per iteration) and ``M_SWEEP``
+  (pixels per lane); output bits depend on none of them;
 - the device time of the kernel under ``torch.profiler``.
 
 It prints the card's name and power limit, one JSON object of the timings,
@@ -44,12 +54,20 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 3
-# scene -> (spp, width, height, step module, step name)
-SCENES = {"book": (16, 1920, 1080, "gridkernel", "grid_megakernel_step"),
-          "dense": (8, 3840, 2160, "pagedkernel", "paged_megakernel_step"),
-          "gridless": (16, 1920, 1080, "megakernel", "megakernel_step")}
+SWEEP_REPS = 7
+# scene -> (spp, width, height, step module, step name, backend)
+SCENES = {"book": (16, 1920, 1080, "gridkernel", "grid_megakernel_step", "auto"),
+          "dense": (8, 3840, 2160, "pagedkernel", "paged_megakernel_step", "auto"),
+          "gridless": (16, 1920, 1080, "megakernel", "megakernel_step", "auto"),
+          "pallas": (2, 1920, 1080, "pallas_intersect", "intersect_shade_pallas", "pallas")}
+# the device kernel's name in the profiler, by scene
+PROFILED = {"book": "grid_megakernel_step_kernel", "dense": "paged_megakernel_step_kernel",
+            "gridless": "megakernel_step_kernel", "pallas": "intersect_shade_kernel"}
 DENSE_N = 100_000
-K_SWEEP = {"dense": (10, 20, 40, 80), "gridless": (10, 20, 40)}
+K_SWEEP = {"dense": (10, 20, 40, 80), "gridless": (10, 20, 40), "book": (40, 80, 160)}
+J_SWEEP = {"2": 2, "4": 4, "close": 1 << 30}  # close: march until the segment closes
+M_SWEEP = (2, 4, 8)
+TAIL = 0.97  # a launch starting with fewer of the band's lanes alive is the tail
 
 
 def wall(fn):
@@ -71,13 +89,15 @@ def _events():
 
 def instrumented(renderer, mod, name):
     """Render once with each launch of ``mod.<name>`` timed by CUDA events,
-    and for the paged driver its first key, each sort and each gather;
-    returns (wall s, per-launch ms, alive lanes going into each launch,
-    {"key"|"sort"|"gather": per-call ms})."""
+    and for the paged driver its first key, each sort and each gather (the
+    grid driver: each ``live_lanes`` and gather); returns (wall s,
+    per-launch ms, alive lanes going into each launch (None for the fused
+    intersect kernel), {"key"|"sort"|"live"|"gather": per-call ms})."""
     from raytrace_tpu_torch.ops import trace
 
     orig = getattr(mod, name)
-    glue = {"key": "_rebucket_key", "sort": "live_order", "gather": "gather_lanes"}
+    glue = {"key": "_rebucket_key", "sort": "live_order", "live": "live_lanes",
+            "gather": "gather_lanes"}
     orig_glue = {k: getattr(trace, f) for k, f in glue.items()}
     launch_ev, alive, glue_ev = [], [], {k: [] for k in glue}
 
@@ -93,8 +113,8 @@ def instrumented(renderer, mod, name):
             return out
         return timed
 
-    u_arg = 5 if name == "megakernel_step" else 4  # the ustate argument
-    step = timing(orig, launch_ev,
+    u_arg = {"megakernel_step": 5, "intersect_shade_pallas": None}.get(name, 4)  # ustate
+    step = timing(orig, launch_ev, None if u_arg is None else
                   lambda args: alive.append(int((args[u_arg][mod.U_ALIVE] != 0).sum())))
     step.launches = orig.launches  # the wrapper counts through its module name
     setattr(mod, name, step)
@@ -130,13 +150,13 @@ def main() -> int:
     from raytrace_tpu_torch.models.paged_grid import build_paged_grid
     from raytrace_tpu_torch.models.scene import (generate_random_scene,
                                                  random_sphere_field, three_sphere_scene)
-    from raytrace_tpu_torch.ops import megakernel, pagedkernel, trace
+    from raytrace_tpu_torch.ops import gridkernel, megakernel, pagedkernel, trace
     from raytrace_tpu_torch.ops.image import accum_to_u8
     from raytrace_tpu_torch.ops.intersect import sphere_table
     from raytrace_tpu_torch.runtime.renderer import Renderer
     from raytrace_tpu_torch.utils.png import encode_png
 
-    spp, width, height, mod_name, step_name = SCENES[scene_name]
+    spp, width, height, mod_name, step_name, backend = SCENES[scene_name]
     mod = importlib.import_module(f"raytrace_tpu_torch.ops.{mod_name}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -148,7 +168,8 @@ def main() -> int:
 
     make = {"book": lambda: generate_random_scene(0.0),
             "dense": lambda: random_sphere_field(DENSE_N),
-            "gridless": three_sphere_scene}[scene_name]
+            "gridless": three_sphere_scene,
+            "pallas": lambda: generate_random_scene(0.0)}[scene_name]
     scenes = [wall(make) for _ in reps]
     res["scene_gen_s"] = [s for _, s in scenes]
     scene = scenes[0][0]
@@ -165,7 +186,36 @@ def main() -> int:
                        for _ in reps]
 
     def cfg(**kw):
-        return RenderConfig(samples=spp, width=width, height=height, **kw)
+        return RenderConfig(samples=spp, width=width, height=height,
+                            **dict(dict(backend=backend), **kw))
+
+    def instrumented_into(r, prefix):
+        """One instrumented render of ``r`` into ``res`` under ``prefix``."""
+        sec, ms, alive, glue_ms = instrumented(r, mod, step_name)
+        res[f"{prefix}_instrumented_wall_s"] = sec
+        res[f"{prefix}_launches"] = len(ms)
+        res[f"{prefix}_kernel_ms_sum"] = sum(ms)
+        glue_sum = 0.0
+        for k, v in glue_ms.items():
+            if v:
+                res[f"{prefix}_{k}_ms_sum"] = sum(v)
+                res[f"{prefix}_{k}_ms_each"] = v
+                glue_sum += sum(v)
+        if glue_ms["gather"] and glue_ms["sort"]:
+            res[f"{prefix}_rebucket_ms_per_launch"] = (
+                (sum(glue_ms["sort"]) + sum(glue_ms["gather"])) / len(glue_ms["gather"]))
+        res[f"{prefix}_host_ms"] = sec * 1e3 - sum(ms) - glue_sum
+        res[f"{prefix}_kernel_ms_each"] = ms
+        if alive:
+            # the band's lanes: the first launch's (every lane starts alive)
+            tail = [m for m, a in zip(ms, alive) if a < TAIL * alive[0]]
+            res[f"{prefix}_alive_lanes_in"] = alive
+            res[f"{prefix}_tail_launches"] = len(tail)
+            res[f"{prefix}_tail_kernel_ms"] = sum(tail)
+            res[f"{prefix}_tail_share"] = sum(tail) / sum(ms)
+        else:  # the spec loop: one kernel call per iteration
+            res[f"{prefix}_host_ms_per_iteration"] = res[f"{prefix}_host_ms"] / len(ms)
+            res[f"{prefix}_kernel_ms_per_iteration"] = sum(ms) / len(ms)
 
     res["renderer_init_s"] = [wall(lambda: Renderer(cfg(), scene=scene, device=dev))[1]
                               for _ in reps]
@@ -174,22 +224,17 @@ def main() -> int:
         res[f"{mode}_backend"], res[f"{mode}_m"] = r.backend, r.pixels_per_lane
         renders = [wall(r.render) for _ in range(REPS + 1)]  # first: warm-up
         res[f"render_{mode}_s"] = [s for _, s in renders]
-        sec, ms, alive, glue_ms = instrumented(r, mod, step_name)
-        res[f"{mode}_instrumented_wall_s"] = sec
-        res[f"{mode}_launches"] = len(ms)
-        res[f"{mode}_kernel_ms_sum"] = sum(ms)
-        glue_sum = 0.0
-        for k, v in glue_ms.items():
-            if v:
-                res[f"{mode}_{k}_ms_sum"] = sum(v)
-                res[f"{mode}_{k}_ms_each"] = v
-                glue_sum += sum(v)
-        if glue_ms["gather"]:
-            res[f"{mode}_rebucket_ms_per_launch"] = (
-                (sum(glue_ms["sort"]) + sum(glue_ms["gather"])) / len(glue_ms["gather"]))
-        res[f"{mode}_host_ms"] = sec * 1e3 - sum(ms) - glue_sum
-        res[f"{mode}_kernel_ms_each"] = ms
-        res[f"{mode}_alive_lanes_in"] = alive
+        instrumented_into(r, mode)
+        if scene_name == "book":  # the same render without the compaction
+            orig_live = trace.live_lanes
+            trace.live_lanes = lambda row: (
+                torch.arange(row.numel(), device=row.device) if bool(row.any())
+                else orig_live(row))
+            try:
+                res[f"{mode}_uncompacted_render_s"] = [wall(r.render)[1] for _ in range(REPS)]
+                instrumented_into(r, f"{mode}_uncompacted")
+            finally:
+                trace.live_lanes = orig_live
         accum, total = renders[-1][0]
         res[f"{mode}_to_u8_s"] = [wall(lambda: accum_to_u8(accum, total).cpu().numpy())[1]
                                   for _ in reps]
@@ -200,21 +245,44 @@ def main() -> int:
         r = Renderer(cfg(backend="mega"), scene=scene, device=dev)
         res["mega_render_exact_s"] = [wall(r.render)[1] for _ in range(REPS + 1)]
 
-    if scene_name in K_SWEEP:
-        r = Renderer(cfg(), scene=scene, device=dev)
-        orig_k = (pagedkernel.scaled_k, megakernel.K_STEPS)
-        for k in K_SWEEP[scene_name]:
-            if scene_name == "dense":
-                pagedkernel.scaled_k = lambda n, k=k: k
-            else:
-                megakernel.K_STEPS = k
+    def sweep(key, setting, values, r=None):
+        """The exact frame's walls, launches and kernel time with
+        ``setting(v)`` applied (it returns an undo) for each value."""
+        r = r or Renderer(cfg(), scene=scene, device=dev)
+        for v in values:
+            undo = setting(v)
             try:
                 before = getattr(mod, step_name).launches
-                walls = [wall(r.render)[1] for _ in range(REPS + 1)]  # first: warm-up
-                res[f"k{k}_render_exact_s"] = walls
-                res[f"k{k}_launches"] = (getattr(mod, step_name).launches - before) // (REPS + 1)
+                walls = [wall(r.render)[1] for _ in range(SWEEP_REPS + 1)]  # first: warm-up
+                res[f"{key}{v}_render_exact_s"] = walls
+                res[f"{key}{v}_launches"] = (getattr(mod, step_name).launches
+                                             - before) // (SWEEP_REPS + 1)
+                res[f"{key}{v}_kernel_ms_sum"] = [sum(instrumented(r, mod, step_name)[1])
+                                                  for _ in range(REPS)]
             finally:
-                pagedkernel.scaled_k, megakernel.K_STEPS = orig_k
+                undo()
+
+    def set_attr(obj, name):
+        def setting(v):
+            old = getattr(obj, name)
+            setattr(obj, name, v)
+            return lambda: setattr(obj, name, old)
+        return setting
+
+    if scene_name == "dense":
+        sweep("k", lambda k: set_attr(pagedkernel, "scaled_k")(lambda n: k), K_SWEEP["dense"])
+    elif scene_name == "gridless":
+        sweep("k", set_attr(megakernel, "K_STEPS"), K_SWEEP["gridless"])
+    elif scene_name == "book":
+        for m in M_SWEEP:
+            r = Renderer(cfg(pixels_per_lane=m), scene=scene, device=dev)
+            for j_name, j in J_SWEEP.items():
+                undo = set_attr(gridkernel, "J_STEPS")(j)
+                try:
+                    sweep(f"m{m}_j{j_name}_k", set_attr(gridkernel, "K_STEPS"),
+                          K_SWEEP["book"], r)
+                finally:
+                    undo()
 
     res["render_exact_median_s"] = statistics.median(res["render_exact_s"][1:])
     print(json.dumps(res), flush=True)
@@ -223,7 +291,7 @@ def main() -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         wall(r.render)
-    kernel = step_name.replace("_step", "")
+    kernel = PROFILED[scene_name]
     dev_us = [e.device_time_total for e in prof.key_averages() if kernel in e.key]
     print(json.dumps({f"profiler_{kernel}_device_ms":
                       (sum(dev_us) / 1e3) if dev_us else None}))
