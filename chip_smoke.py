@@ -19,15 +19,16 @@ one line and raises on failure, so any failure exits non-zero:
    the card could take for the work (bytes over 3.35 TB/s or fp32 operations
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs):
    the grid step on the driver's live lanes of a book-scene state at the
-   1920x1080 lane count, with its home-order accumulator (every pixel
-   bit-equal); the brute-force step on the three-sphere state (the path that
-   launches it)
-   and on the book-scene state, at the same lane count, the kernel scanning
-   the table's valid prefix and the plain version every row; the paged step
+   renderer's 1920x1080 lane count for it (M=2 on an H100), with its
+   home-order accumulator (every pixel bit-equal); the brute-force step on
+   the three-sphere state (the path that launches it) and on the book-scene
+   state, at their lane count (M=8), the kernel scanning the table's valid
+   prefix and the plain version every row; the paged step
    on the sorted and compacted live lanes of a 100k-sphere state at the
    3840x2160 lane count, with its home-order accumulator (every pixel
    bit-equal) and its sort-key row (equal to ``trace._rebucket_key``); and
-   the fused intersect kernel on the 259,200 rays of the book-scene state;
+   the fused intersect kernel (valid prefix; its plain version every row)
+   on the 259,200 rays of the book-scene state;
 4. gates: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
    by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), grid == mega and
    paged == mega on the 100k-sphere field exactly at 128x72, depth 4, the
@@ -101,17 +102,6 @@ def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def in_turns(fns, reps, rounds=2):
-    """{name: median ms} of each ``fns[name]()`` timed in turns: every
-    round times them in order and then in reverse (a, b, b, a), ``reps``
-    CUDA-event timings each (``cuda_ms``)."""
-    times = {k: [] for k in fns}
-    for _ in range(rounds):
-        for k in list(fns) + list(fns)[::-1]:
-            times[k].append(cuda_ms(fns[k], reps))
-    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def compare(kern, plain):
@@ -209,37 +199,58 @@ def main() -> int:
         return bound_ms, bound_by, text
 
     def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
-                   tables, label=""):
+                   tables, label="", accum=False, compact=None, check=None):
         """Pack a band state at (w, h)'s lane count, take it two launches
         in, then one kernel launch and one plain call from there in exact and
-        fast mode; time both in exact mode.  Returns (exact-mode input,
+        fast mode; time both in exact mode.  ``call(k, scal, vpr, f, u, g,
+        acc, **x)`` runs step ``k``; ``accum``: it adds into a home-order
+        accumulator, compared pixel for pixel; ``compact(out)``: the
+        driver's live lanes (f, u) of a step's output or of the packed state,
+        taken before every launch; ``check(out)``: (count, what) of a further
+        disagreement in the kernel's output.  Returns (exact-mode input,
         max |diff|, ms, plain ms, bound ms, bound by)."""
         m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp)
-        max_err, out = 0.0, None
+        live = compact or (lambda out: out[:2])
+        max_err, res = 0.0, None
         for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
             g = dict(geom, max_depth=50, skip_tmax=skip_tmax, rr=rr)
-            f1, u1 = f0, u0
+            acc = trace.home_accum(None, geom["p_total"], dev) if accum else None
+            out = (f0, u0)
             for _ in range(2):
-                f1, u1 = call(kern, scal, vpr, f1, u1, g)
+                out = call(kern, scal, vpr, *live(out), g, acc)
+            f1, u1 = live(out)
+            acc_k, acc_p = (acc.clone(), acc.clone()) if accum else (None, None)
             work = {}
-            out_k = call(kern, scal, vpr, f1, u1, g)
-            out_p = call(plain, scal, vpr, f1, u1, g, work=work)
+            out_k = call(kern, scal, vpr, f1, u1, g, acc_k)
+            out_p = call(plain, scal, vpr, f1, u1, g, acc_p, work=work)
             torch.cuda.synchronize()
             n_bad, err = compare(out_k, out_p)
-            max_err = max(max_err, err)
+            acc_bad, acc_err = compare((acc_k.T,), (acc_p.T,)) if accum else (0, 0.0)
+            n_odd, odd = check(out_k) if check else (0, "")
+            max_err = max(max_err, err, acc_err)
             n = f1.shape[1]
             timing = ""
             if mode == "exact":
-                ms = cuda_ms(lambda: call(kern, scal, vpr, f1, u1, g), 5)
-                plain_ms = cuda_ms(lambda: call(plain, scal, vpr, f1, u1, g), 2)
-                moved = 2 * nbytes(f1, u1) + nbytes(scal, vpr, *tables)
+                acc_t = acc.clone() if accum else None
+                ms = cuda_ms(lambda: call(kern, scal, vpr, f1, u1, g, acc_t), 5)
+                plain_ms = cuda_ms(lambda: call(plain, scal, vpr, f1, u1, g, acc_t), 2)
+                # the lanes' state in and out, any further output (a key
+                # row), each flushed pixel's slot read and written, the
+                # tables once
+                moved = (2 * nbytes(f1, u1) + nbytes(*out_k[2:])
+                         + (24 * work.get("flushes", 0) if accum else 0)
+                         + nbytes(scal, vpr, *tables))
                 bound_ms, bound_by, timing = step_timing(ms, plain_ms, work, moved)
-                out = ((f1, u1), ms, plain_ms, bound_ms, bound_by)
-            phase("kernel", f"{name}{label} {mode}: {n} lanes (M={m}), {n_bad} lanes "
-                  f"differ from the plain version, max |diff| {err}{timing}")
-            if n_bad > n // 1000:
-                raise RuntimeError(f"{name}{label} {mode}: {n_bad}/{n} lanes differ (> 0.1%)")
-        return out[0], max_err, *out[1:]
+                res = ((f1, u1), ms, plain_ms, bound_ms, bound_by)
+            pix = f", {acc_bad} of {geom['p_total']} accumulator pixels differ" if accum else ""
+            odd_txt = f", {n_odd} {odd}" if check else ""
+            phase("kernel", f"{name}{label} {mode}: {n} lanes of {geom['n_lanes']} (M={m}), "
+                  f"{n_bad} lanes differ from the plain version{pix}{odd_txt}, max |diff| "
+                  f"{max(err, acc_err)}{timing}")
+            if n_bad > n // 1000 or acc_bad or n_odd:
+                raise RuntimeError(f"{name}{label} {mode}: {n_bad}/{n} lanes, {acc_bad} "
+                                   f"pixels{odd_txt} differ")
+        return res[0], max_err, *res[1:]
 
     def record(name, src, repl, max_err, ms, plain_ms, bound_ms, bound_by, **extra):
         records[name] = dict(name=name, route="cuda", source=src, replaces=repl,
@@ -248,7 +259,6 @@ def main() -> int:
                              bound_by=bound_by, library_ms=None, **extra)
 
     # what the card makes of the redesigned kernels' instances
-    lib = _build.library()
     for five, n_slots in ((0, 4), (0, 6), (1, 6)):
         occ = _build.occupancy("grid", five, n_slots, dev.index)
         phase("occupancy", f"grid kernel, {5 if five else 4}-value layout, "
@@ -257,101 +267,24 @@ def main() -> int:
     phase("occupancy", f"fused intersect kernel: {occ}")
 
     # the grid kernel two launches into the 1080p frame, on the driver's live
-    # lanes (compacted out of the full state), with its home-order
-    # accumulator; PR 3's kernel on the full state (its driver kept every
-    # lane) re-laid into its layout (accumulator rows, block-major tables),
-    # timed in turns with the new kernel on the same full state and on the
-    # live lanes
-    gm, (gf0, gu0, gscal, gvpr, ggeom) = step_state("grid", ds, MAIN_W, MAIN_H, MAIN_SPP)
-    host_grid = trace.prepare_scene(scene).grid
-    pr3_tabs = {f: torch.from_numpy(getattr(host_grid, f)).to(dev)
-                for f in ("gscal", "gtab", "gttab", "ctab", "atab")}
-    grid_tables = [t for t in ds.grid if torch.is_tensor(t)]
-    max_err = 0.0
-    for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
-        g = dict(ggeom, max_depth=50, skip_tmax=skip, rr=rr)
-        acc = trace.home_accum(None, ggeom["p_total"], dev)
-        fa, ua = gf0, gu0
-        for _ in range(2):
-            fa, ua = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, fa, ua, acc, **g)
-        f1, u1 = trace.gather_lanes(fa, ua, trace.live_lanes(ua[gridkernel.U_ALIVE]))
-        n, n_all = f1.shape[1], fa.shape[1]
-        acc_k, acc_p, work = acc.clone(), acc.clone(), {}
-        fk, uk = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, f1, u1, acc_k, **g)
-        fp, up = gridkernel.grid_megakernel_step_plain(gscal, gvpr, ds.grid, f1, u1, acc_p,
-                                                       work=work, **g)
-        torch.cuda.synchronize()
-        n_bad, err = compare((fk, uk), (fp, up))
-        acc_bad, acc_err = compare((acc_k.T,), (acc_p.T,))
-        # PR 3's kernel on the full state in its layout, against the new
-        # kernel on the same full state
-        rf3 = -(-(21 + 3 * gm) // 8) * 8
-        home = gm * n_all == ggeom["p_total"]  # every slot of every lane is a pixel
+    # lanes, with its home-order accumulator
+    def grid_live(out):
+        return trace.gather_lanes(out[0], out[1], trace.live_lanes(out[1][gridkernel.U_ALIVE]))
 
-        def pr3_rows(acc_):
-            return acc_.reshape(gm, n_all, 3).permute(0, 2, 1).reshape(3 * gm, n_all)
-        f3 = torch.zeros((rf3, n_all), dtype=torch.float32, device=dev)
-        f3[0:16], f3[18:21] = fa[0:16], fa[16:19]
-        if home:
-            f3[21 : 21 + 3 * gm] = pr3_rows(acc)
-        u3 = ua[0:8].contiguous()
-
-        def pr3_step(f_in=f3, u_in=u3, g=g):
-            fo, uo = torch.empty_like(f_in), torch.empty_like(u_in)
-            err_ = lib.rt_grid_megakernel_step_pr3(
-                gscal.data_ptr(), gvpr.data_ptr(), *(pr3_tabs[k].data_ptr() for k in
-                                                     ("gscal", "gtab", "gttab", "ctab", "atab")),
-                None, f_in.data_ptr(), u_in.data_ptr(), fo.data_ptr(), uo.data_ptr(),
-                pr3_tabs["gtab"].shape[0], pr3_tabs["gttab"].shape[0], 0, 4, 16, n_all, rf3,
-                gm, ggeom["n_lanes"], ggeom["p_total"], ggeom["width"], 50,
-                gridkernel.K_STEPS, gridkernel.J_STEPS, int(bool(skip)),
-                *megakernel._rr_args(g["rr"]), dev.index,
-                torch.cuda.current_stream(dev).cuda_stream)
-            if err_:
-                raise RuntimeError(f"PR 3 grid kernel: {_build.error_string(err_)}")
-            return fo, uo
-        f3o, u3o = pr3_step()
-        acc_f = acc.clone()
-        ff, uf = gridkernel.grid_megakernel_step(gscal, gvpr, ds.grid, fa, ua, acc_f, **g)
-        torch.cuda.synchronize()
-        pr3_bad = (compare((f3o[[*range(16), 18, 19, 20]], u3o, f3o[21 : 21 + 3 * gm]),
-                           (ff, uf[0:8], pr3_rows(acc_f)))[0] if home else None)
-        max_err = max(max_err, err, acc_err)
-        timing = ""
-        if mode == "exact":
-            acc_t = acc.clone()
-            turns = in_turns({
-                "pr3": pr3_step,
-                "new_full_state": lambda: gridkernel.grid_megakernel_step(
-                    gscal, gvpr, ds.grid, fa, ua, acc_t, **g),
-                "new_live_lanes": lambda: gridkernel.grid_megakernel_step(
-                    gscal, gvpr, ds.grid, f1, u1, acc_t, **g)}, 5)
-            g_ms, g_pr3_ms = turns["new_live_lanes"], turns["pr3"]
-            g_plain_ms = cuda_ms(lambda: gridkernel.grid_megakernel_step_plain(
-                gscal, gvpr, ds.grid, f1, u1, acc_t, **g), 2)
-            # the live lanes' state in and out, each flushed pixel's slot
-            # read and written, the tables once
-            moved = (2 * nbytes(f1, u1) + 24 * work.get("flushes", 0)
-                     + nbytes(gscal, gvpr, *grid_tables))
-            g_bound_ms, g_bound_by, timing = step_timing(g_ms, g_plain_ms, work, moved)
-            timing += f"; in turns (ms per launch): {turns}"
-        phase("kernel", f"grid_megakernel_step {mode}: {n} live lanes of {n_all} "
-              f"(M={gm}), {n_bad} lanes differ from the plain version, {acc_bad} of "
-              f"{ggeom['p_total']} accumulator pixels differ; on the full state PR 3's "
-              f"kernel: {pr3_bad} lanes differ; max |diff| {max(err, acc_err)}{timing}")
-        if n_bad > n // 1000 or acc_bad:
-            raise RuntimeError(f"grid_megakernel_step {mode}: {n_bad}/{n} lanes, "
-                               f"{acc_bad} pixels differ")
+    _, g_err, *g_res = check_step(
+        "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+        gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+        lambda k, s, v, f, u, g, acc, **x: k(s, v, ds.grid, f, u, acc, **g, **x),
+        [t for t in ds.grid if torch.is_tensor(t)], accum=True, compact=grid_live)
     record("grid_megakernel_step", "raytrace_tpu_torch/csrc/gridkernel.cu",
-           "raytrace_tpu/ops/gridkernel.py:1123", max_err, g_ms, g_plain_ms,
-           g_bound_ms, g_bound_by, pr3_ms=g_pr3_ms)
+           "raytrace_tpu/ops/gridkernel.py:1123", g_err, *g_res)
 
     # the brute-force kernel scans the valid prefix of the table; its plain
     # version scans every row
     def mega_call(dsc, at):
         n_valid = int(dsc.valid.sum())
 
-        def call(k, s, v, f, u, g, **x):
+        def call(k, s, v, f, u, g, acc, **x):
             if k is megakernel.megakernel_step:
                 x = dict(x, n_valid=n_valid)
             return k(s, v, dsc.table, at, f, u, **g, **x)
@@ -376,53 +309,27 @@ def main() -> int:
     # the paged kernel on the driver's sorted and compacted live lanes, two
     # launches into the 100k frame; its home-order accumulator and its key
     # row are checked too
-    dm, (pf0, pu0, pscal, pvpr, pgeom) = step_state("paged", dds, DENSE_W, DENSE_H, DENSE_SPP)
     gs = dds.paged.gscal
-    paged_tables = [dds.paged.geom, dds.paged.lids, dds.paged.attrs, dds.paged.gtab, gs]
-    max_err = 0.0
-    for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
-        g = dict(pgeom, max_depth=50, skip_tmax=dense_skip, rr=rr,
-                 k_steps=pagedkernel.scaled_k(pgeom["n_lanes"]))
-        acc = trace.home_accum(None, pgeom["p_total"], dev)
-        f1, u1, key = pf0, pu0, trace._rebucket_key(pf0, pu0, gs)
-        for _ in range(2):
-            f1, u1 = trace.gather_lanes(f1, u1, trace.live_order(key))
-            f1, u1, key = pagedkernel.paged_megakernel_step(
-                pscal, pvpr, dds.paged, f1, u1, acc, **g)
-        f1, u1 = trace.gather_lanes(f1, u1, trace.live_order(key))
-        acc_k, acc_p, work = acc.clone(), acc.clone(), {}
-        fk, uk, kk = pagedkernel.paged_megakernel_step(pscal, pvpr, dds.paged, f1, u1, acc_k, **g)
-        fp, up, kp = pagedkernel.paged_megakernel_step_plain(
-            pscal, pvpr, dds.paged, f1, u1, acc_p, work=work, **g)
-        torch.cuda.synchronize()
-        n = f1.shape[1]
-        n_bad, err = compare((fk, uk, kk[None]), (fp, up, kp[None]))
-        acc_bad, acc_err = compare((acc_k.T,), (acc_p.T,))
-        key_bad = int((kk != trace._rebucket_key(fk, uk, gs)).sum())
-        max_err = max(max_err, err, acc_err)
-        timing = ""
-        if mode == "exact":
-            acc_t = acc.clone()
-            p_ms = cuda_ms(lambda: pagedkernel.paged_megakernel_step(
-                pscal, pvpr, dds.paged, f1, u1, acc_t, **g), 5)
-            p_plain_ms = cuda_ms(lambda: pagedkernel.paged_megakernel_step_plain(
-                pscal, pvpr, dds.paged, f1, u1, acc_t, **g), 2)
-            # the live lanes' state in and out, the key row, each flushed
-            # pixel's slot read and written, the tables once
-            moved = (2 * nbytes(f1, u1) + nbytes(kk) + 24 * work.get("flushes", 0)
-                     + nbytes(pscal, pvpr, *paged_tables))
-            p_bound_ms, p_bound_by, timing = step_timing(p_ms, p_plain_ms, work, moved)
-        phase("kernel", f"paged_megakernel_step {mode}: {n} live lanes of "
-              f"{pgeom['n_lanes']} (M={dm}), {n_bad} lanes differ from the plain version "
-              f"(state and key), {acc_bad} of {pgeom['p_total']} accumulator pixels differ, "
-              f"{key_bad} key rows differ from _rebucket_key, max |diff| {max(err, acc_err)}"
-              f"{timing}")
-        if n_bad > n // 1000 or acc_bad or key_bad:
-            raise RuntimeError(f"paged_megakernel_step {mode}: {n_bad}/{n} lanes, "
-                               f"{acc_bad} pixels, {key_bad} keys differ")
+
+    def paged_live(out):  # the packed state has no key row yet
+        key = out[2] if len(out) > 2 else trace._rebucket_key(out[0], out[1], gs)
+        return trace.gather_lanes(out[0], out[1], trace.live_order(key))
+
+    def paged_call(k, s, v, f, u, g, acc, **x):
+        return k(s, v, dds.paged, f, u, acc, **g, **x,
+                 k_steps=pagedkernel.scaled_k(g["n_lanes"]))
+
+    def key_check(out):
+        return (int((out[2] != trace._rebucket_key(out[0], out[1], gs)).sum()),
+                "key rows differ from _rebucket_key")
+
+    _, p_err, *p_res = check_step(
+        "paged_megakernel_step", "paged", dds, DENSE_W, DENSE_H, DENSE_SPP, dense_skip,
+        pagedkernel.paged_megakernel_step, pagedkernel.paged_megakernel_step_plain,
+        paged_call, [dds.paged.geom, dds.paged.lids, dds.paged.attrs, dds.paged.gtab, gs],
+        accum=True, compact=paged_live, check=key_check)
     record("paged_megakernel_step", "raytrace_tpu_torch/csrc/pagedkernel.cu",
-           "raytrace_tpu/ops/pagedkernel.py:794", max_err, p_ms, p_plain_ms,
-           p_bound_ms, p_bound_by)
+           "raytrace_tpu/ops/pagedkernel.py:794", p_err, *p_res)
 
     # the fused intersect kernel on the rays of the book-scene state two
     # launches into a 1080p render (259,200 camera and bounce rays)
@@ -434,27 +341,12 @@ def main() -> int:
     def pk_call():
         return pallas_intersect.intersect_shade_pallas(o, d, ds.table, n_valid=n_valid)
 
-    def pr3_intersect():
-        t_, a_ = torch.empty(o.shape[0], device=dev), torch.empty((o.shape[0], 16), device=dev)
-        err_ = lib.rt_intersect_shade_pr3(o.data_ptr(), d.data_ptr(), ds.table.data_ptr(),
-                                          t_.data_ptr(), a_.data_ptr(), o.shape[0],
-                                          ds.table.shape[0], dev.index,
-                                          torch.cuda.current_stream(dev).cuda_stream)
-        if err_:
-            raise RuntimeError(f"PR 3 intersect kernel: {_build.error_string(err_)}")
-        return t_, t_ < 3e38, a_
-
     out_k = pk_call()
     out_p = pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table)
-    out_3 = pr3_intersect()
     torch.cuda.synchronize()
-
-    def cols(out):
-        return [x.reshape(x.shape[0], -1).T for x in out]
-    n_bad, err = compare(cols(out_k), cols(out_p))
-    pr3_bad = compare(cols(out_3), cols(out_k))[0]
-    turns = in_turns({"pr3": pr3_intersect, "new": pk_call}, 10)
-    ms, i_pr3_ms = turns["new"], turns["pr3"]
+    n_bad, err = compare([x.reshape(x.shape[0], -1).T for x in out_k],
+                         [x.reshape(x.shape[0], -1).T for x in out_p])
+    ms = cuda_ms(pk_call, 10)
     plain_ms = cuda_ms(lambda: pallas_intersect.intersect_shade_pallas_plain(o, d, ds.table), 3)
     n_rays = o.shape[0]
     ops = OPS_QUADRATIC * n_rays * n_valid + OPS_LANE_ITER * n_rays
@@ -462,10 +354,9 @@ def main() -> int:
     bound_ms, bound_by = bound(moved, ops)
     phase("kernel", f"intersect_shade_pallas: {n_rays} rays x {ds.table.shape[0]} rows, "
           f"{n_bad} rays differ from the plain version, max |diff| {err}, "
-          f"{int(out_k[1].sum())} hits, {n_valid} valid rows scanned; PR 3's kernel: "
-          f"{pr3_bad} rays differ; kernel "
+          f"{int(out_k[1].sum())} hits, {n_valid} valid rows scanned; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms per call, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {moved} B, {ops} ops); in turns (ms per call): {turns}")
+          f"({bound_by}: {moved} B, {ops} ops)")
     if n_bad > n_rays // 1000:
         raise RuntimeError(f"intersect_shade_pallas: {n_bad}/{n_rays} rays differ (> 0.1%)")
     records["intersect_shade_pallas"] = dict(
@@ -473,7 +364,7 @@ def main() -> int:
         source="raytrace_tpu_torch/csrc/intersect.cu",
         replaces="raytrace_tpu/ops/pallas_intersect.py:104", launches=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None, pr3_ms=i_pr3_ms)
+        bound_by=bound_by, library_ms=None)
 
     # ---- 4. gates ----------------------------------------------------------
     def render(dsc, backend, w, h, spp, depth, m_, skip_tmax=skip):

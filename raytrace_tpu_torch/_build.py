@@ -27,8 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu",
-           "gridkernel_pr3.cu", "intersect_pr3.cu")
+SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu")
 HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
@@ -41,18 +40,16 @@ _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # 8 pointers, 14 ints, pmin, device, stream
     "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 14 + [_FLOAT, _INT, _VOIDP],
-    # 13 pointers (tattrs may be NULL), 19 ints, pmin, device, stream
-    "rt_grid_megakernel_step": [_VOIDP] * 13 + [_INT] * 19 + [_FLOAT, _INT, _VOIDP],
+    # 13 pointers (tattrs may be NULL), 17 ints, pmin, device, stream
+    "rt_grid_megakernel_step": [_VOIDP] * 13 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
     # five, n_slots, device; out [4]
     "rt_grid_occupancy": [_INT] * 3 + [_VOIDP],
-    "rt_grid_megakernel_step_pr3": [_VOIDP] * 12 + [_INT] * 18 + [_FLOAT, _INT, _VOIDP],
     # 13 pointers, 17 ints, pmin, device, stream
     "rt_paged_megakernel_step": [_VOIDP] * 13 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
     # o, d, table, t, attrs; n, s_rows, device; stream
     "rt_intersect_shade": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     # device; out [4]
     "rt_intersect_occupancy": [_INT, _VOIDP],
-    "rt_intersect_shade_pr3": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
 }
 
 

@@ -14,16 +14,18 @@
 // that hits nothing gets row 0's attributes, as the one-hot contraction
 // gives it.
 //
-// What bounds it on the card: instruction issue in the (ray, row) scan --
+// What bounds it on the card: the instruction count of the (ray, row) scan --
 // about 17 fp32 operations and a compare per pair on a miss, the root and
 // the range checks on a hit -- not bytes (each ray reads 24 bytes and writes
-// 68).  What the design does about it:
+// 68).  A miss is ~22 instructions in the SASS (one 16-byte shared load, the
+// 17 operations, the compare, the branch and its convergence barrier), and
+// ptxas unrolls the row loop by 4.  What the design does about it:
 // - the table is staged once per block and chunk in shared memory as one
 //   16-byte record per row (cx, cy, cz, kc), and an invalid row's cx is
 //   staged as NaN, which makes its disc NaN: the same miss as the valid
 //   column's BIG, with no check in the scan;
 // - one thread owns one ray: owning 2 or 4 (one shared-memory load feeding
-//   2 or 4 quadratics) measured slower on the card (PERF.md, PR 4), since
+//   2 or 4 quadratics) measured slower on the card (PERF.md), since
 //   the extra registers cost more resident warps than the loads saved;
 // - a miss (disc < 0 or NaN) takes neither the root nor the range checks;
 // - the caller may give the table's valid prefix (`s_rows`): prepare_scene's

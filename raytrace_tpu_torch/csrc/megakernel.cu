@@ -20,7 +20,7 @@
 //   the three-sphere scene 4 of 512 rows are valid);
 // - a row's (cx, cy, cz, kc) is one 16-byte load (row i starts at byte 96 i)
 //   that every lane of a warp shares;
-// - a miss skips the IEEE root's slow path (rt::quadratic).
+// - a miss skips the root (rt::quadratic).
 // Staging the rows in shared-memory tiles instead, loaded by the whole block
 // in a block-uniform loop, measured slower on the card (PERF.md, PR 3).
 //

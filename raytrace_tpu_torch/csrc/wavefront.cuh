@@ -123,31 +123,11 @@ __device__ __forceinline__ RayTerms ray_terms(float ox, float oy, float oz,
   return q;
 }
 
+// The root is taken only on a hit: a miss (disc < 0 or NaN) branches past
+// the square root and returns BIG, the same bits as sqrt(disc)'s NaN failing
+// both checks (and sqrt(-0) is -0).
 __device__ __forceinline__ float quadratic(const RayTerms& q, float cx, float cy,
                                            float cz, float kc, bool skip_tmax) {
-  float cd = cx * q.dx + cy * q.dy + cz * q.dz;
-  float co = cx * q.ox + cy * q.oy + cz * q.oz;
-  float b = q.od - cd;
-  float c = q.oo - 2.0f * co + kc;
-  float disc = b * b - q.a * c;
-  // A miss (disc < 0 or NaN) takes sqrt(0), not the IEEE root's slow path
-  // for a negative input, and fails both checks through `ok`: the same bits
-  // as sqrt(disc)'s NaN failing every comparison (and sqrt(-0) is -0).
-  const bool ok = disc >= 0.0f;
-  float sq = sqrtf(ok ? disc : 0.0f);
-  float t1 = (-b - sq) * q.inv_a;
-  float t2 = (-b + sq) * q.inv_a;
-  bool t1_ok = ok && (skip_tmax ? (t1 >= T_MIN) : (t1 >= T_MIN && t1 <= T_MAX));
-  bool t2_ok = ok && (skip_tmax ? (t2 >= T_MIN) : (t2 >= T_MIN && t2 <= T_MAX));
-  return t1_ok ? t1 : (t2_ok ? t2 : BIG);
-}
-
-// quadratic() with the root taken only on a hit: a miss (disc < 0 or NaN)
-// returns BIG before the square root, the same bits, since both of its roots
-// would fail `ok`.  For the grid and fused-intersect kernels, where most
-// tests miss.
-__device__ __forceinline__ float quadratic_hit(const RayTerms& q, float cx, float cy,
-                                               float cz, float kc, bool skip_tmax) {
   const float cd = cx * q.dx + cy * q.dy + cz * q.dz;
   const float co = cx * q.ox + cy * q.oy + cz * q.oz;
   const float b = q.od - cd;

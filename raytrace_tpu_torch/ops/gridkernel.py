@@ -89,7 +89,7 @@ def layout(grid):
 def lane_pixel(m, lane0, n_lanes):
     """The pixel of slot ``m`` of the lane with home index ``lane0``: M
     strided pixels per lane.  The kernel's ``lane_pixel`` is the same
-    formula; the balanced table (ROADMAP queue 1, item 6) replaces both."""
+    formula; the balanced table (ROADMAP queue 1, item 2) replaces both."""
     return m * n_lanes + lane0
 
 
@@ -152,7 +152,7 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
 
     five, n_slots, stride = layout(grid)
     g = grid
-    n_cells, n_ids = g.cells.shape[0], g.attrs.shape[0]
+    n_ids = g.attrs.shape[0]
     if stride % 4 or stride < (5 if five else 4) * n_slots:
         raise ValueError(f"cells {tuple(g.cells.shape)} cannot hold {n_slots} slots")
     if g.attrs.shape != (n_ids, 8) or (g.tattrs is not None and g.tattrs.shape != (n_ids, 4)):
@@ -182,7 +182,7 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     uout = torch.empty_like(ustate)
     err = _build.library().rt_grid_megakernel_step(
         *ptrs, fout.data_ptr(), uout.data_ptr(),
-        g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride, n_cells, n_ids,
+        g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride,
         fstate.shape[1], m_slots, n_lanes, p_total, width, max_depth, k_steps,
         j_steps, int(bool(skip_tmax)), *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)

@@ -92,13 +92,11 @@ intersect_shade_pallas.launches = 0
 
 def intersect_shade_pallas_plain(o, d, table, n_valid=None):
     """The plain torch version of ``intersect_shade_pallas``: the TPU
-    kernel's [S, N] expression order over the first ``n_valid`` rows (None:
-    all), ``argmin`` (lowest index among the minima) and an indexed load of
-    the winner's attribute columns."""
+    kernel's [S, N] expression order, the rows past the first ``n_valid``
+    (None: none) taken as invalid, ``argmin`` (lowest index among the
+    minima) and an indexed load of the winner's attribute columns."""
     intersect_shade_pallas_plain.launches += 1
-    full = table
-    rows = _rows(table, n_valid)
-    table = table[: max(rows, 1)]  # no rows: row 0 scanned as invalid
+    scanned = torch.arange(table.shape[0], device=table.device)[:, None] < _rows(table, n_valid)
     ox, oy, oz = (o[:, i][None, :] for i in range(3))  # [1, N]
     dx, dy, dz = (d[:, i][None, :] for i in range(3))
     a = dx * dx + dy * dy + dz * dz
@@ -107,7 +105,7 @@ def intersect_shade_pallas_plain(o, d, table, n_valid=None):
     inv_a = 1.0 / a
     cx, cy, cz = (table[:, c : c + 1] for c in (_C_CX, _C_CY, _C_CZ))  # [S, 1]
     kc = table[:, _C_KC : _C_KC + 1]
-    vld = table[:, _C_VALID : _C_VALID + 1] if rows else torch.zeros_like(table[:, :1])
+    vld = table[:, _C_VALID : _C_VALID + 1]
     cd = cx * dx + cy * dy + cz * dz  # [S, N]
     co = cx * ox + cy * oy + cz * oz
     b = od - cd
@@ -121,10 +119,10 @@ def intersect_shade_pallas_plain(o, d, table, n_valid=None):
     t2_ok = ok & (t2 >= TMIN) & (t2 <= TMAX)
     big = torch.tensor(BIG, dtype=torch.float32, device=o.device)
     t = torch.where(t1_ok, t1, torch.where(t2_ok, t2, big))
-    t = torch.where(vld > 0.0, t, big)
+    t = torch.where((vld > 0.0) & scanned, t, big)
     t_min = torch.amin(t, dim=0)
     idx = torch.argmin(t, dim=0)  # lowest index among the minima
-    return t_min, t_min < big, full[idx, _C_ATTR0:]
+    return t_min, t_min < big, table[idx, _C_ATTR0:]
 
 
 intersect_shade_pallas_plain.launches = 0

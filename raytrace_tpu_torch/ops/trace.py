@@ -58,8 +58,8 @@ _SKY = (0.7, 0.8, 1.0)  # shader.rmiss:15
 LANE_PAD = 128  # kernel lanes are padded to a multiple of one CUDA block
 
 # out-of-slice options; each raises NotImplementedError naming its ROADMAP item
-_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 5)"
-_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 6)"
+_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 1)"
+_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 2)"
 SPEC_BACKENDS = ("bruteforce", "matmul", "pallas")
 KERNEL_BACKENDS = ("mega", "grid", "paged")
 

@@ -33,7 +33,7 @@ _TARGET_LANES = {
 CPU_LANES_TARGET = 1 << 12  # the plain steps' lane target on the CPU
 # lanes per thread slot of the card, by backend: the grid driver launches
 # over its live lanes only, and its 1080p x 16 spp frame took the least
-# kernel time at M=2, 4x the card's 2048 threads per SM (PERF.md, PR 4)
+# kernel time at M=2, 4x the card's 2048 threads per SM (PERF.md)
 LANES_PER_THREAD = {"grid": 4}
 M_MAX = 64  # pixels-per-lane cap
 
@@ -96,7 +96,7 @@ class Renderer:
                  device="cuda"):
         if config.chips > 1:
             raise NotImplementedError(
-                "chips > 1: row bands over several devices (ROADMAP queue 1, item 9)")
+                "chips > 1: row bands over several devices (ROADMAP queue 1, item 5)")
         if config.calls_per_exec > 1:
             raise NotImplementedError(f"calls_per_exec > 1: {_TODO_MERGE}")
         if config.balance_spp > 0:

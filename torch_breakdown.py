@@ -25,8 +25,10 @@ fused intersect kernel).  Each step is timed three times:
   sort key, and the sort and the gather of the live lanes before each
   launch, timed the same way; for the grid driver also the compaction
   (``live_lanes``, ``gather_lanes``), and the same render with compaction
-  off (every lane launched until none is alive, the driver of PR 3); for
-  ``pallas`` the kernel time against the host time per spec-loop iteration;
+  off (every lane launched until none is alive, as the grid driver did
+  before it compacted), its steady walls timed in turns with the compacted
+  render's; for ``pallas`` the kernel time against the host time per
+  spec-loop iteration;
 - the tonemap and copy to the host, and the PNG encode;
 - the same exact frame on the brute-force megakernel (book scene only: on
   100k spheres it would take minutes);
@@ -190,7 +192,10 @@ def main() -> int:
                             **dict(dict(backend=backend), **kw))
 
     def instrumented_into(r, prefix):
-        """One instrumented render of ``r`` into ``res`` under ``prefix``."""
+        """An instrumented render of ``r`` into ``res`` under ``prefix``: the
+        second of two, so that the first pays for the events' and the
+        allocator's first use."""
+        instrumented(r, mod, step_name)
         sec, ms, alive, glue_ms = instrumented(r, mod, step_name)
         res[f"{prefix}_instrumented_wall_s"] = sec
         res[f"{prefix}_launches"] = len(ms)
@@ -227,14 +232,26 @@ def main() -> int:
         instrumented_into(r, mode)
         if scene_name == "book":  # the same render without the compaction
             orig_live = trace.live_lanes
-            trace.live_lanes = lambda row: (
-                torch.arange(row.numel(), device=row.device) if bool(row.any())
-                else orig_live(row))
-            try:
-                res[f"{mode}_uncompacted_render_s"] = [wall(r.render)[1] for _ in range(REPS)]
-                instrumented_into(r, f"{mode}_uncompacted")
-            finally:
-                trace.live_lanes = orig_live
+
+            def every_lane(row):
+                return (torch.arange(row.numel(), device=row.device) if bool(row.any())
+                        else orig_live(row))
+
+            def uncompacted(fn):
+                trace.live_lanes = every_lane
+                try:
+                    return fn()
+                finally:
+                    trace.live_lanes = orig_live
+            # walls in turns: compacted, uncompacted, uncompacted, compacted, ...
+            turns = {"compacted": [], "uncompacted": []}
+            for i in range(SWEEP_REPS):
+                for name in (("compacted", "uncompacted") if i % 2 == 0
+                             else ("uncompacted", "compacted")):
+                    run = (lambda: wall(r.render)[1])
+                    turns[name].append(uncompacted(run) if name == "uncompacted" else run())
+            res[f"{mode}_render_in_turns_s"] = turns
+            uncompacted(lambda: instrumented_into(r, f"{mode}_uncompacted"))
         accum, total = renders[-1][0]
         res[f"{mode}_to_u8_s"] = [wall(lambda: accum_to_u8(accum, total).cpu().numpy())[1]
                                   for _ in reps]
