@@ -20,7 +20,9 @@ one line and raises on failure, so any failure exits non-zero:
    over 67 TFLOP/s, whichever is larger, counted from this run's inputs):
    the grid step on the driver's live lanes of a book-scene state at the
    renderer's 1920x1080 lane count for it (M=2 on an H100), with its
-   home-order accumulator (every pixel bit-equal); the brute-force step on
+   home-order accumulator (every lane and pixel bit-equal), and the same
+   for a merged state (4 calls, the last shorter), a balanced table built
+   from a real iterstats probe, and the iterstats instance; the brute-force step on
    the three-sphere state (the path that launches it) and on the book-scene
    state, at their lane count (M=8), the kernel scanning the table's valid
    prefix and the plain version every row; the paged step
@@ -29,12 +31,18 @@ one line and raises on failure, so any failure exits non-zero:
    bit-equal) and its sort-key row (equal to ``trace._rebucket_key``); and
    the fused intersect kernel (valid prefix; its plain version every row)
    on the 259,200 rays of the book-scene state;
-4. gates: mega and grid against the CPU-oracle goldens (24x14: <= 3 px off
-   by > 1e-4; 128x72: <= 1% of pixels off by > 1e-3), grid == mega and
-   paged == mega on the 100k-sphere field exactly at 128x72, depth 4, the
-   ``pallas`` and ``matmul`` backends at 24x14 under the JAX package's
-   statistical rules, and grid == mega exactly through ``ray_trace`` at
-   128x72 x 2 spp, depth 8, and at 1920x1080 x 16 spp, depth 50;
+4. gates: the JAX package's gates through ``runtime/validation.py`` on the
+   card: ``golden_check`` single and multi-tile for bruteforce, mega and grid
+   (its ``ok``, and 24x14: <= 3 px off by > 1e-4; 128x72: <= 1% of pixels
+   off by > 1e-3), ``bitident_check`` grid == mega in exact and fast mode,
+   ``merge_check``, ``bandsplit_check`` and ``fast_check``; paged == mega on
+   the 100k-sphere field exactly at 128x72, depth 4, the ``pallas`` and
+   ``matmul`` backends at 24x14 under the JAX package's statistical rules,
+   grid == mega exactly through ``ray_trace`` at 128x72 x 2 spp, depth 8,
+   and at 1920x1080 x 16 spp, depth 50; and at 1920x1080 x 16 spp in exact
+   and fast mode, the merged render (4 spp per call, 4 calls per dispatch)
+   == the host loop and the balanced render (``balance_spp=8``) == the
+   unbalanced one, 0 px differing;
 5. main path, with every launch count set to 0 just before it and read
    just after it: ``ray_trace(samples=16, width=1920, height=1080,
    store_render_result=True)`` on the book scene, exact and fast (grid
@@ -43,9 +51,16 @@ one line and raises on failure, so any failure exits non-zero:
    at 3840x2160 x 8 spp, exact and fast (paged kernel; the re-bucket's sort
    and gather per launch, their share of the wall and the live lanes at the
    first and last launches are printed); ``ray_trace(samples=2, width=1920,
-   height=1080, backend="pallas")`` (fused intersect kernel); and the
-   ``matmul`` backend on the three-sphere scene at 480x270, 1 spp, depth 8.
-   Each kernel must have launched, and no plain version.
+   height=1080, backend="pallas")`` (fused intersect kernel); the
+   ``matmul`` backend on the three-sphere scene at 480x270, 1 spp, depth 8;
+   and the headline, the JAX bench's operating point: the book scene at
+   1920x1080 x 10,000 spp in fast mode through ``Renderer`` with
+   ``balance_spp=32``, ``samples_per_call=2500`` and ``calls_per_exec=4``,
+   timed once after a warm-up call that runs the probe (with
+   ``return_iters``, whose lane slots must be 128 per tile iteration), with its launches,
+   samples x pixels per second, the balance statistics and the 1-spp frame
+   loop ((t(65 merged 1-spp calls) - t(one call)) / 64, bench.py's
+   measure).  Each kernel must have launched, and no plain version.
 
 Before the last line it prints the kernels' JSON record (``launches`` are the
 main path's counts); the last line is ``{"ok": true, "device": {...}}``.
@@ -64,6 +79,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "smoke")
 MAIN_SPP, MAIN_W, MAIN_H = 16, 1920, 1080
+# the JAX bench's operating point (bench.py:86-98)
+HEAD_SPP, HEAD_SPP_PER_CALL, HEAD_CALLS_PER_EXEC, HEAD_BALANCE_SPP = 10_000, 2500, 4, 32
+FRAME_LOOP_CALLS = 65
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
 # H100 SXM peaks (NVIDIA data sheet): device memory and fp32 outside the
 # tensor cores
@@ -137,6 +155,8 @@ def main() -> int:
                                                  three_sphere_scene)
     from raytrace_tpu_torch.ops import (gridkernel, megakernel, pagedkernel,
                                         pallas_intersect, trace)
+    from raytrace_tpu_torch.ops.image import accum_to_u8
+    from raytrace_tpu_torch.runtime import balance, validation
     from raytrace_tpu_torch.runtime import renderer as rmod
 
     os.makedirs(OUT, exist_ok=True)
@@ -182,13 +202,17 @@ def main() -> int:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    def step_state(backend, dsc, w, h, spp):
+    def lanes_m(backend, w, h):
+        """The renderer's M for (w, h) on this card."""
+        return int(np.clip(-(-(w * h) // rmod.lanes_target(dev, backend)), 1, rmod.M_MAX))
+
+    def step_state(backend, dsc, w, h, spp, **pack):
         """A band state at (w, h)'s lane count (the renderer's M)."""
-        m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev, backend)), 1, rmod.M_MAX))
+        m = lanes_m(backend, w, h)
         vp = trace.viewport_arrays(cam, w, h)
         return m, trace.pack_state(
             dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
-            offset_x=0, spp=spp, number=0, pixels_per_lane=m)
+            offset_x=0, spp=spp, number=0, pixels_per_lane=m, **pack)
 
     def step_timing(ms, plain_ms, work, moved):
         ops = (OPS_QUADRATIC * work["quadratics"] + OPS_LANE_ITER * work["lane_iters"]
@@ -199,7 +223,8 @@ def main() -> int:
         return bound_ms, bound_by, text
 
     def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
-                   tables, label="", accum=False, compact=None, check=None):
+                   tables, label="", accum=False, compact=None, check=None,
+                   pack=None, strict=False):
         """Pack a band state at (w, h)'s lane count, take it two launches
         in, then one kernel launch and one plain call from there in exact and
         fast mode; time both in exact mode.  ``call(k, scal, vpr, f, u, g,
@@ -207,9 +232,11 @@ def main() -> int:
         accumulator, compared pixel for pixel; ``compact(out)``: the
         driver's live lanes (f, u) of a step's output or of the packed state,
         taken before every launch; ``check(out)``: (count, what) of a further
-        disagreement in the kernel's output.  Returns (exact-mode input,
-        max |diff|, ms, plain ms, bound ms, bound by)."""
-        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp)
+        disagreement in the kernel's output; ``pack``: further arguments of
+        ``pack_state``; ``strict``: every lane must be bit-equal (else
+        99.9%).  Returns (exact-mode input, max |diff|, ms, plain ms, bound
+        ms, bound by)."""
+        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, **(pack or {}))
         live = compact or (lambda out: out[:2])
         max_err, res = 0.0, None
         for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
@@ -247,7 +274,7 @@ def main() -> int:
             phase("kernel", f"{name}{label} {mode}: {n} lanes of {geom['n_lanes']} (M={m}), "
                   f"{n_bad} lanes differ from the plain version{pix}{odd_txt}, max |diff| "
                   f"{max(err, acc_err)}{timing}")
-            if n_bad > n // 1000 or acc_bad or n_odd:
+            if n_bad > (0 if strict else n // 1000) or acc_bad or n_odd:
                 raise RuntimeError(f"{name}{label} {mode}: {n_bad}/{n} lanes, {acc_bad} "
                                    f"pixels{odd_txt} differ")
         return res[0], max_err, *res[1:]
@@ -259,10 +286,10 @@ def main() -> int:
                              bound_by=bound_by, library_ms=None, **extra)
 
     # what the card makes of the redesigned kernels' instances
-    for five, n_slots in ((0, 4), (0, 6), (1, 6)):
-        occ = _build.occupancy("grid", five, n_slots, dev.index)
+    for five, n_slots, iterstats in ((0, 4, 0), (0, 6, 0), (1, 6, 0), (0, 4, 1)):
+        occ = _build.occupancy("grid", five, n_slots, iterstats, dev.index)
         phase("occupancy", f"grid kernel, {5 if five else 4}-value layout, "
-              f"{n_slots} slots: {occ}")
+              f"{n_slots} slots{', iterstats' if iterstats else ''}: {occ}")
     occ = _build.occupancy("intersect", dev.index)
     phase("occupancy", f"fused intersect kernel: {occ}")
 
@@ -271,13 +298,38 @@ def main() -> int:
     def grid_live(out):
         return trace.gather_lanes(out[0], out[1], trace.live_lanes(out[1][gridkernel.U_ALIVE]))
 
+    def grid_call(**step):
+        return lambda k, s, v, f, u, g, acc, **x: k(s, v, ds.grid, f, u, acc, **g, **step, **x)
+
+    grid_tables = [t for t in ds.grid if torch.is_tensor(t)]
     _, g_err, *g_res = check_step(
         "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
         gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
-        lambda k, s, v, f, u, g, acc, **x: k(s, v, ds.grid, f, u, acc, **g, **x),
-        [t for t in ds.grid if torch.is_tensor(t)], accum=True, compact=grid_live)
+        grid_call(), grid_tables, accum=True, compact=grid_live, strict=True)
+    # the variants of this PR's slice: a merged state (4 calls of 16 spp, the
+    # last of 5), a balanced table from a real probe (2 spp at M=2), the
+    # iterstats instance
+    m_main = lanes_m("grid", MAIN_W, MAIN_H)
+    vp_main = trace.viewport_arrays(cam, MAIN_W, MAIN_H)
+    cost = balance.measure_cost_map(dict(
+        scene=ds, vp=vp_main, band_h=MAIN_H, width=MAIN_W, y0=0, seed_y0=0, offset_x=0,
+        number=0, max_depth=50, backend="grid", pixels_per_lane=m_main, skip_tmax=skip,
+        rr=RenderConfig(mode="fast").rr), 2)
+    table = torch.from_numpy(balance.build_passign(cost, m_main, trace.LANE_PAD)).to(dev)
+    variants = {"merged": (dict(n_calls=4, spp_last=5), {}),
+                "balanced": (dict(passign=table), dict(passign=table)),
+                "iterstats": ({}, dict(iterstats=True))}
+    variant_ms = {}
+    for label, (pack, step) in variants.items():
+        _, v_err, v_ms, v_plain_ms, *_ = check_step(
+            "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+            gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+            grid_call(**step), grid_tables + ([table] if "passign" in step else []),
+            label=f" ({label})", accum=True, compact=grid_live, pack=pack, strict=True)
+        g_err = max(g_err, v_err)
+        variant_ms[f"{label}_ms"], variant_ms[f"{label}_plain_ms"] = v_ms, v_plain_ms
     record("grid_megakernel_step", "raytrace_tpu_torch/csrc/gridkernel.cu",
-           "raytrace_tpu/ops/gridkernel.py:1123", g_err, *g_res)
+           "raytrace_tpu/ops/gridkernel.py:1123", g_err, *g_res, **variant_ms)
 
     # the brute-force kernel scans the valid prefix of the table; its plain
     # version scans every row
@@ -375,16 +427,28 @@ def main() -> int:
             skip_tmax=skip_tmax)
         return out.cpu().numpy()
 
-    data = os.path.join(ROOT, "tests", "data")
-    g24 = np.load(os.path.join(data, "golden_fullscene_24x14_2spp_d12.npy"))
-    g128 = np.load(os.path.join(data, "golden_fullscene_128x72_2spp_d8.npy"))
-    for backend in ("mega", "grid"):
-        off24 = int((np.abs(render(ds, backend, 24, 14, 2, 12, 3) - g24).max(axis=2) > 1e-4).sum())
-        off128 = int((np.abs(render(ds, backend, 128, 72, 2, 8, 1) - g128).max(axis=2) > 1e-3).sum())
-        phase("golden", f"{backend}: 24x14 {off24}/336 px off by > 1e-4; "
-              f"128x72 {off128}/9216 px off by > 1e-3")
-        if off24 > 3 or off128 > 9216 // 100:
+    # the JAX package's gates (runtime/validation.py), on the card
+    g24 = np.load(validation.GOLDEN)
+    for backend in ("bruteforce", "mega", "grid"):
+        single = validation.golden_check(backend, device=dev)
+        multi = validation.golden_check(backend, multi_tile=True, device=dev)
+        out24, _ = validation._render_golden_config(backend, False, device=dev)
+        off24 = int((np.abs(out24 - g24).max(axis=2) > 1e-4).sum())
+        phase("golden", f"golden_check {backend}: 24x14 {single}, {off24}/336 px off by > "
+              f"1e-4; 128x72 {multi}")
+        if not (single["ok"] and multi["ok"]) or off24 > 3 or multi["bad_px"] > 9216 // 100:
             raise RuntimeError(f"{backend} disagrees with the oracle goldens")
+    gates = [validation.bitident_check("grid", "mega", mode=mode, device=dev)
+             for mode in ("exact", "fast")]
+    gates += [validation.merge_check(device=dev), validation.bandsplit_check(device=dev)]
+    for res in gates:
+        phase("golden", f"{res}")
+        if not res["bit_identical"]:
+            raise RuntimeError(f"gate failed: {res}")
+    res = validation.fast_check(device=dev)
+    phase("golden", f"{res}")
+    if not res["ok"]:
+        raise RuntimeError(f"gate failed: {res}")
     a = render(ds, "grid", 128, 72, 2, 4, 1)
     b = render(ds, "mega", 128, 72, 2, 4, 1)
     n_diff = int((a != b).any(axis=2).sum())
@@ -431,7 +495,24 @@ def main() -> int:
     phase("golden", f"ray_trace grid == mega at 128x72 depth 8: {n_diff} px differ")
     if n_diff:
         raise RuntimeError("grid and mega differ through ray_trace")
-    # and at the main path's full width, exact mode
+    # and at the main path's full width, exact mode (the renders through
+    # Renderer here: the merged against the host loop, the balanced against
+    # the unbalanced, exact and fast)
+    for mode in ("exact", "fast"):
+        def full(**kw):
+            cfg = RenderConfig(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H, mode=mode, **kw)
+            return rmod.Renderer(cfg, device=dev).render()[0]
+        host = full(samples_per_call=4)
+        merged = full(samples_per_call=4, calls_per_exec=4)
+        plain_map = full()
+        balanced = full(balance_spp=8)
+        n_merge = int((merged != host).any(dim=2).sum())
+        n_bal = int((balanced != plain_map).any(dim=2).sum())
+        phase("golden", f"{MAIN_W}x{MAIN_H} x {MAIN_SPP} spp {mode}: merged (4 spp per call, "
+              f"4 calls per dispatch) vs host loop {n_merge} px differ; balanced "
+              f"(balance_spp=8) vs unbalanced {n_bal} px differ")
+        if n_merge or n_bal:
+            raise RuntimeError(f"merged or balanced render differs ({mode})")
     walls = {}
     for backend in ("grid", "mega"):
         torch.cuda.synchronize()
@@ -520,6 +601,50 @@ def main() -> int:
         return raytrace_tpu_torch.render_image(cfg, scene=three_sphere_scene(),
                                                device="cuda"), ""
 
+    def synced(fn):
+        """Seconds of ``fn()``, synchronised with the card."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def headline():
+        """The JAX bench's operating point: a warm-up call (it runs the
+        balance probe), the 10,000-spp render timed once, then the 1-spp
+        frame loop as bench.py measures it."""
+        cfg = RenderConfig(samples=HEAD_SPP, width=MAIN_W, height=MAIN_H, mode="fast",
+                           balance_spp=HEAD_BALANCE_SPP, samples_per_call=HEAD_SPP_PER_CALL,
+                           calls_per_exec=HEAD_CALLS_PER_EXEC)
+        r = rmod.Renderer(cfg, device=dev)
+        out = {}
+        warm = synced(lambda: out.update(iters=r.render_call(4, return_iters=True)))
+        _, tile_iters, lane_slots = out["iters"]
+        if tile_iters <= 0 or lane_slots != tile_iters * trace.LANE_PAD:
+            raise RuntimeError(f"return_iters: {tile_iters} tile iterations, {lane_slots} "
+                               "lane slots")
+        before = gridkernel.grid_megakernel_step.launches
+        sec = synced(lambda: out.update(res=r.render()))
+        n_launch = gridkernel.grid_megakernel_step.launches - before
+        accum, total = out["res"]
+        one, many = [], []
+        for _ in range(4):  # the first of each warms up
+            one.append(synced(lambda: r.render_call(1)))
+            many.append(synced(lambda: r.render_call(1, n_calls=FRAME_LOOP_CALLS, spp_last=1)))
+        t_one, t_many = sorted(one[1:])[1], sorted(many[1:])[1]
+        loop_ms = (t_many - t_one) / (FRAME_LOOP_CALLS - 1) * 1e3
+        stats = {y: {k: round(v, 4) if isinstance(v, float) else v for k, v in st.items()}
+                 for y, st in r.balance_stats.items()}
+        phase("headline", f"{MAIN_W}x{MAIN_H} x {HEAD_SPP} spp fast, M={r.pixels_per_lane}, "
+              f"{HEAD_SPP_PER_CALL} spp per call, {HEAD_CALLS_PER_EXEC} calls per dispatch, "
+              f"balance_spp={HEAD_BALANCE_SPP}: render {sec:.3f} s "
+              f"({HEAD_SPP * MAIN_W * MAIN_H / sec:.4g} samples*px/s) in {n_launch} grid "
+              f"launches; warm-up call with the probe {warm:.3f} s ({tile_iters} tile "
+              f"iterations, {lane_slots} lane slots); balance {stats}; 1-spp "
+              f"frame loop {loop_ms:.3f} ms per frame (one call {t_one * 1e3:.3f} ms, "
+              f"{FRAME_LOOP_CALLS} merged {t_many * 1e3:.3f} ms)")
+        return accum_to_u8(accum, total).cpu().numpy(), f"render {sec:.3f} s"
+
     runs = (("book scene exact", book, ("exact",), "grid", MAIN_SPP, MAIN_W, MAIN_H),
             ("book scene fast", book, ("fast",), "grid", MAIN_SPP, MAIN_W, MAIN_H),
             ("three-sphere scene exact", gridless, (), "mega", MAIN_SPP, MAIN_W, MAIN_H),
@@ -528,7 +653,8 @@ def main() -> int:
             (f"{DENSE_N}-sphere field fast", dense, ("fast",), "paged",
              DENSE_SPP, DENSE_W, DENSE_H),
             ("book scene pallas backend", pallas, (), "pallas", 2, MAIN_W, MAIN_H),
-            ("three-sphere scene matmul backend", matmul, (), "matmul", 1, 480, 270))
+            ("three-sphere scene matmul backend", matmul, (), "matmul", 1, 480, 270),
+            ("book scene headline", headline, (), "grid", HEAD_SPP, MAIN_W, MAIN_H))
     step_of = {"grid": "grid_megakernel_step", "mega": "megakernel_step",
                "paged": "paged_megakernel_step", "pallas": "intersect_shade_pallas"}
     results = []

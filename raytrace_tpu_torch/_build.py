@@ -40,10 +40,10 @@ _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # 8 pointers, 14 ints, pmin, device, stream
     "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 14 + [_FLOAT, _INT, _VOIDP],
-    # 13 pointers (tattrs may be NULL), 17 ints, pmin, device, stream
-    "rt_grid_megakernel_step": [_VOIDP] * 13 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
-    # five, n_slots, device; out [4]
-    "rt_grid_occupancy": [_INT] * 3 + [_VOIDP],
+    # 14 pointers (tattrs and passign may be NULL), 19 ints, pmin, device, stream
+    "rt_grid_megakernel_step": [_VOIDP] * 14 + [_INT] * 19 + [_FLOAT, _INT, _VOIDP],
+    # five, n_slots, iterstats, device; out [4]
+    "rt_grid_occupancy": [_INT] * 4 + [_VOIDP],
     # 13 pointers, 17 ints, pmin, device, stream
     "rt_paged_megakernel_step": [_VOIDP] * 13 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
     # o, d, table, t, attrs; n, s_rows, device; stream

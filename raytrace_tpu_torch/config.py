@@ -3,9 +3,9 @@
 Port copy of ``raytrace_tpu/config.py`` (pure Python): ``RenderCallInfo``
 mirrors the reference's ``render_call_info.h``; ``RenderConfig`` collects the
 CLI-level settings plus the renderer's knobs (sample chunking, backend,
-accumulator dtype, exact/fast mode).  Settings the port does not run yet
-(``chips > 1``, ``calls_per_exec > 1``, ``balance_spp > 0``) are kept so the
-signature matches the JAX package; the renderer refuses them by name.
+accumulator dtype, exact/fast mode, call merge, balanced lanes).  ``chips >
+1`` is kept so the signature matches the JAX package; the renderer refuses
+it by name until the port has row bands over several devices.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class RenderConfig:
     chips: int = 1  # devices to split row bands over (only 1 in the port so far)
     max_depth: int = MAX_DEPTH
     samples_per_call: Optional[int] = None  # None = all in one call (reference Q3)
-    calls_per_exec: int = 1  # in-kernel call merge (not in the port yet)
+    calls_per_exec: int = 1  # progressive calls merged into one dispatch (grid)
     backend: str = "auto"  # auto|grid|paged|mega|bruteforce|matmul|pallas
     mode: str = "exact"  # exact|fast.  "exact" reproduces the reference GLSL
     # sample stream bit-for-bit (the test/parity contract).  "fast" is the
@@ -68,7 +68,8 @@ class RenderConfig:
     # image statistically matches exact mode; sample values differ).
     rr_params: Optional[Tuple[int, int, float]] = None  # override the
     # (start depth, cap depth, p floor) defaults for mode="fast"
-    balance_spp: int = 0  # balanced pixel->lane tables (not in the port yet)
+    balance_spp: int = 0  # spp of the cost probe behind the balanced pixel->lane
+    # tables (grid; 0 = the strided map)
     scene_time: float = 0.0  # hero-sphere animation time (scene.h:82-83)
     accum_dtype: str = "float32"  # reference uses dvec3 (Q5)
     out_path: str = "render.png"

@@ -39,15 +39,24 @@
 // to save the TPU kernel a fetch block; every segment start tests them, and
 // they are ~85% of the quadratics the book needs (ROADMAP).
 //
-// Not in this version: the TPU kernel's in-kernel call merge (its u32 rows
-// 8-11) and the balanced `passign` table; the fresh TEA seed of a lane that
-// moves to its next pixel is computed inline, the pixel from `lane_pixel`.
+// In-kernel call merge: a launch renders `n_calls` progressive calls per
+// pixel back to back (numbers number..number+n_calls-1, `spp` samples each,
+// `spp_last` in the last), flushing `cur` into the accumulator at every call
+// boundary, so the accumulator sees the host loop's adds in the host loop's
+// order.  The fresh TEA seed of a renewed lane (next call of its pixel, or
+// its next pixel) is computed inline where the TPU kernel hoists it into
+// state rows: the same hash of the same operands.  A lane's pixels come
+// from `lane_pixel`: M strided pixels, or the balanced table `passign`
+// [m_slots, tab_n] (runtime/balance.py), indexed by slot and home index.
+// ITER is the iterstats probe: red counts the issued iterations of the
+// lane's current (pixel, call) chunk instead of colour.
 //
 // State: row-major [rows, n] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy,
 // 8-10 thr, 11 t_best, 12 t_end, 13 t_nx, 14 t_nz, 15 bkey, 16-18 cur;
 // int32 rows (u32 bits) 0 seed, 1 m, 2 sidx, 3 depth, 4 alive, 5 marching,
-// 6 icx, 7 icz, 8 lane0 (the lane's home index).  Output is written out of
-// place; the accumulator is updated in place.
+// 6 icx, 7 icz, 8 lane0 (the lane's home index), 9 call (the progressive
+// call within the launch's merge).  Output is written out of place; the
+// accumulator is updated in place.
 #include <cuda_runtime.h>
 
 #include "wavefront.cuh"
@@ -56,7 +65,8 @@ namespace {
 
 constexpr int R_TB = 11, R_TE = 12, R_TNX = 13, R_TNZ = 14, R_BKEY = 15;
 constexpr int R_CUR = 16, F_ROWS = 19;
-constexpr int U_MARCH = 5, U_ICX = 6, U_ICZ = 7, U_LANE0 = 8, U_ROWS = 9;
+constexpr int U_MARCH = 5, U_ICX = 6, U_ICZ = 7, U_LANE0 = 8, U_CALL = 9, U_ROWS = 10;
+constexpr int S_NCALLS = 5, S_SPPLAST = 6;  // scal slots of the call merge
 constexpr float TAG = 4096.0f;  // bkey >= TAG: global winner TAG + id
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 8;  // resident blocks per SM asked of ptxas
@@ -76,32 +86,40 @@ struct GridParams {
   const float4* cells;  // [cells, stride4] cell records (models/grid.py CellTables)
   const float4* attrs;  // [ids, 2]: (mat, c0.rgb), (attr, center.xyz)
   const float4* tattrs;  // [ids]: (tex, c1.rgb) -- or null
+  const int32_t* passign;  // [m_slots, tab_n] pixel of (slot, home index) -- or null
   const float* fin;
   const int32_t* uin;
   float* acc;  // [p_total, 3], home (pixel) order
   float* fout;
   int32_t* uout;
   int n_g, n_gt, n_slots, stride4;
-  int n, m_slots, n_lanes, p_total, width, max_depth, k_steps, j_steps;
+  int n, m_slots, n_lanes, p_total, width, max_depth, k_steps, j_steps, tab_n;
   bool skip_tmax;
   rt::RR rr;
 };
 
 // The pixel of slot m of the lane with home index lane0: M strided pixels
-// per lane (ops/trace.py).  The balanced table (ROADMAP queue 1, item 2)
-// replaces this one formula.
-__device__ __forceinline__ int lane_pixel(int m, int lane0, int n_lanes) {
-  return m * n_lanes + lane0;
+// per lane (ops/trace.py), or the balanced table's entry; p_total (no
+// pixel) for a slot past the last, which the table has no row for.
+__device__ __forceinline__ int lane_pixel(const GridParams& P, int m, int lane0) {
+  if (P.passign == nullptr) return m * P.n_lanes + lane0;
+  if (m < 0 || m >= P.m_slots) return P.p_total;
+  return __ldg(P.passign + (size_t)m * P.tab_n + lane0);
 }
 
 // FIVE: the 5-value slot layout; NS > 0: exactly NS slots per cell, loaded
-// before the first test (else P.n_slots, one at a time).
-template <bool FIVE, int NS>
+// before the first test (else P.n_slots, one at a time); ITER: the
+// iterstats probe.
+template <bool FIVE, int NS, bool ITER>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel(GridParams P) {
   __shared__ float4 s_g[MAX_G];  // globals: cx cy cz kc
   __shared__ float s_gid[MAX_G];
   __shared__ float4 s_gt[MAX_G];  // textured globals: tex c1.rgb
   __shared__ float s_gtid[MAX_G];
+  // the launch's scalars, read where they are used (at a chunk's end and a
+  // lane's renewal) rather than held in registers through the loop
+  __shared__ int32_t s_scal[8];
+  if (threadIdx.x < 8) s_scal[threadIdx.x] = P.scal[threadIdx.x];
   for (int k = threadIdx.x; k < P.n_g; k += BLOCK) {
     const float* g = P.gtab + 16 * k;
     s_g[k] = make_float4(g[0], g[1], g[2], g[3]);
@@ -123,10 +141,6 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
     return;
   }
 
-  const int spp = P.scal[rt::S_SPP];
-  const uint32_t number = (uint32_t)P.scal[rt::S_NUMBER];
-  const int y0 = P.scal[rt::S_Y0], seed_y0 = P.scal[rt::S_SEEDY0];
-  const int offx = P.scal[rt::S_OFFX];
   const float* vpr = P.vpr;
   const float* gs = P.gscal;
   const float cminx = gs[G_CMINX], cminz = gs[G_CMINZ];
@@ -157,8 +171,16 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
   int icx = P.uin[U_ICX * n + lane];
   int icz = P.uin[U_ICZ * n + lane];
   const int lane0 = P.uin[U_LANE0 * n + lane];
+  // the call within the merge, and its sample count, change only when a
+  // chunk ends: off the path of every iteration
+  auto chunk_spp = [&](int c) {
+    return c + 1 >= s_scal[S_NCALLS] ? s_scal[S_SPPLAST] : s_scal[rt::S_SPP];
+  };
+  int cidx = P.uin[U_CALL * n + lane];
+  int cur_spp = chunk_spp(cidx);
 
   for (int it = 0; it < P.k_steps && alive; ++it) {
+    if (ITER) cur_x = cur_x + 1.0f;  // every issued iteration, marching ones too
     const rt::RayTerms q = rt::ray_terms(ox, oy, oz, dx, dy, dz);
 
     // ---- segment start: globals + grid clip + DDA init -------------------
@@ -294,18 +316,20 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
       const float lx = hit ? (s.does_scatter ? 0.0f : s.ax) : rt::SKY_R;
       const float ly = hit ? (s.does_scatter ? 0.0f : s.ay) : rt::SKY_G;
       const float lz = hit ? (s.does_scatter ? 0.0f : s.az) : rt::SKY_B;
-      cur_x = cur_x + tx * lx;
+      if (!ITER) cur_x = cur_x + tx * lx;
       cur_y = cur_y + ty * ly;
       cur_z = cur_z + tz * lz;
     }
     uint32_t seed_a = hit ? s.seed_h : seed;
     if (considered) seed_a = seed_rr;
 
-    // ---- flush the finished pixel's sum into its accumulator slot --------
-    const bool more = term && sidx < spp;
-    const bool pix_done = term && !more;
-    if (pix_done) {
-      const int pix = lane_pixel(mrow, lane0, P.n_lanes);
+    // ---- flush the finished (pixel, call) chunk's sum into its slot -------
+    const bool more = term && sidx < cur_spp;
+    const bool chunk_done = term && !more;
+    bool more_calls = false;
+    if (chunk_done) {
+      more_calls = cidx + 1 < s_scal[S_NCALLS];
+      const int pix = lane_pixel(P, mrow, lane0);
       if (mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
         float* a = P.acc + 3 * (size_t)pix;
         a[0] = a[0] + cur_x;
@@ -317,11 +341,13 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
       cur_z = 0.0f;
     }
 
-    // ---- regen: next sample or next pixel ---------------------------------
+    // ---- regen: next sample, next call of the pixel, or next pixel --------
+    const bool pix_done = chunk_done && !more_calls;
     const int m2 = mrow + (pix_done ? 1 : 0);
-    const int pix2 = lane_pixel(m2, lane0, P.n_lanes);
+    const int pix2 = pix_done ? lane_pixel(P, m2, lane0) : P.p_total;
     const bool adv = pix_done && m2 < P.m_slots && pix2 < P.p_total;
-    const bool regen = more || adv;
+    const bool renew = more_calls || adv;
+    const bool regen = more || renew;
     if (cont) {
       float bx = s.sdx, by = s.sdy, bz = s.sdz;
       rt::norm3(bx, by, bz);
@@ -332,11 +358,21 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
       depth = depth + 1;
     } else if (regen) {
       uint32_t seed_c = seed_a;
-      if (adv) {
-        const int px2 = pix2 % P.width, py2 = pix2 / P.width;
-        fx = (float)(offx + px2);
-        fy = (float)(y0 + py2);
-        seed_c = rt::pixel_seed(px2, seed_y0 + py2, number);
+      if (renew) {  // a fresh TEA seed: the next pixel, or the next call's number
+        uint32_t number = (uint32_t)s_scal[rt::S_NUMBER];
+        const int y0 = s_scal[rt::S_Y0], offx = s_scal[rt::S_OFFX];
+        int px, py;
+        if (adv) {
+          px = pix2 % P.width;
+          py = pix2 / P.width;
+          fx = (float)(offx + px);
+          fy = (float)(y0 + py);
+        } else {
+          px = (int)(fx - (float)offx);
+          py = (int)(fy - (float)y0);
+          number = number + (uint32_t)(cidx + 1);
+        }
+        seed_c = rt::pixel_seed(px, s_scal[rt::S_SEEDY0] + py, number);
       }
       const rt::Ray r = rt::camera_ray(seed_c, fx, fy, vpr);
       ox = r.ox; oy = r.oy; oz = r.oz;
@@ -348,7 +384,11 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
       seed = seed_a;
     }
     mrow = m2;
-    sidx = adv ? 1 : sidx + (more ? 1 : 0);
+    if (chunk_done) {
+      cidx = more_calls ? cidx + 1 : 0;
+      cur_spp = chunk_spp(cidx);
+    }
+    sidx = renew ? 1 : sidx + (more ? 1 : 0);
     alive = cont || regen;
   }
 
@@ -376,6 +416,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
   P.uout[U_ICX * n + lane] = icx;
   P.uout[U_ICZ * n + lane] = icz;
   P.uout[U_LANE0 * n + lane] = lane0;
+  P.uout[U_CALL * n + lane] = cidx;
 }
 
 typedef void (*KernelFn)(GridParams);
@@ -384,23 +425,30 @@ typedef void (*KernelFn)(GridParams);
 // any other 4-value count, or the 5-value layout.  The 4-slot instance, its
 // four loads in flight before the first test, measured ~4% faster on the
 // book than the generic one, which loads a slot at a time (PERF.md).
-KernelFn pick(int five, int n_slots) {
-  if (five) return grid_megakernel_step_kernel<true, 0>;
-  if (n_slots != 4) return grid_megakernel_step_kernel<false, 0>;
-  return grid_megakernel_step_kernel<false, 4>;
+template <bool ITER>
+KernelFn pick_layout(int five, int n_slots) {
+  if (five) return grid_megakernel_step_kernel<true, 0, ITER>;
+  if (n_slots != 4) return grid_megakernel_step_kernel<false, 0, ITER>;
+  return grid_megakernel_step_kernel<false, 4, ITER>;
+}
+
+KernelFn pick(int five, int n_slots, int iterstats) {
+  return iterstats ? pick_layout<true>(five, n_slots) : pick_layout<false>(five, n_slots);
 }
 
 }  // namespace
 
 // Launches one step over the n lanes of the state on `stream`; returns
-// cudaGetLastError() of the launch.
+// cudaGetLastError() of the launch.  `passign` may be null (M strided
+// pixels per lane); `tab_n` is its row length.
 extern "C" int rt_grid_megakernel_step(
     const int32_t* scal, const float* vpr, const float* gscal, const float* gtab,
     const float* gttab, const float* cells, const float* attrs, const float* tattrs,
-    const float* fin, const int32_t* uin, float* acc, float* fout, int32_t* uout,
+    const int32_t* passign, const float* fin, const int32_t* uin, float* acc,
+    float* fout, int32_t* uout,
     int n_g, int n_gt, int five, int n_slots, int stride,
     int n, int m_slots, int n_lanes, int p_total, int width,
-    int max_depth, int k_steps, int j_steps, int skip_tmax,
+    int max_depth, int k_steps, int j_steps, int skip_tmax, int tab_n, int iterstats,
     int rr_on, int rr_d0, int rr_d1, float rr_pmin, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -408,12 +456,12 @@ extern "C" int rt_grid_megakernel_step(
   GridParams P{scal, vpr, gscal, gtab, gttab,
                reinterpret_cast<const float4*>(cells),
                reinterpret_cast<const float4*>(attrs),
-               reinterpret_cast<const float4*>(tattrs),
+               reinterpret_cast<const float4*>(tattrs), passign,
                fin, uin, acc, fout, uout,
                n_g, n_gt, n_slots, stride / 4,
                n, m_slots, n_lanes, p_total, width, max_depth, k_steps,
-               j_steps, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
-  const KernelFn fn = pick(five, n_slots);
+               j_steps, tab_n, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
+  const KernelFn fn = pick(five, n_slots, iterstats);
   const int grid = (n + BLOCK - 1) / BLOCK;
   fn<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
@@ -423,10 +471,11 @@ extern "C" int rt_grid_megakernel_step(
 // out[1] registers per thread, out[2] local memory per thread (spills and
 // stack, bytes), out[3] static shared memory per block (bytes).  Returns a
 // cudaError_t.
-extern "C" int rt_grid_occupancy(int five, int n_slots, int device, int* out) {
+extern "C" int rt_grid_occupancy(int five, int n_slots, int iterstats, int device,
+                                 int* out) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const KernelFn fn = pick(five, n_slots);
+  const KernelFn fn = pick(five, n_slots, iterstats);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;

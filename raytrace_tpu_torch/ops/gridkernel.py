@@ -15,7 +15,8 @@ lane is in one of two modes:
 Lanes whose march completed resolve the winner by sphere id (one ``attrs``
 record, plus ``tattrs`` or the textured-globals ``gttab`` chain), shade
 (``shading_rows``), terminate or continue, flush the running pixel sum ``cur``
-into the band's accumulator when a pixel's samples are done, and regenerate.
+into the band's accumulator when a (pixel, call) chunk's samples are done,
+and regenerate.
 Results are identical to the brute-force megakernel: the same packed (cx,
 cz, kc) values, the same quadratic op order, strict-< updates over
 index-sorted candidates in ray-ordered cells (models/grid.py exactness
@@ -25,17 +26,28 @@ The tables are ``models.grid.CellTables``: the JAX package's block-major
 tables re-laid once per scene (``cell_major``) so that a cell's slots and a
 sphere's attributes are each one contiguous record.
 
-The pixel sums do not ride in the lane state: a finished pixel's sum is added
-into a separate [p_total, 3] f32 accumulator in home (pixel) order, at pixel
-``lane_pixel(m, lane0, n_lanes)``, in place, and the ``U_LANE0`` row carries
-the lane's home index, so the driver (``ops/trace.py:_render_band_mega``) can
-drop dead lanes between launches.
+The pixel sums do not ride in the lane state: a finished chunk's sum is
+added into a separate [p_total, 3] f32 accumulator in home (pixel) order, at
+pixel ``lane_pixel(m, lane0, ...)``, in place, and the ``U_LANE0`` row
+carries the lane's home index, so the driver
+(``ops/trace.py:_render_band_mega``) can drop dead lanes between launches.
+``lane_pixel`` is M strided pixels per lane, or the balanced table
+``passign`` [m_slots, n_pad] (``runtime/balance.py``): a lane renders the
+pixels of its column in slot order.
 
-Not in this port yet: the JAX kernel's in-kernel call merge and its hoisted
-fresh-seed rows (its u32 rows 8-11: U_CALL, U_FNC, U_FNP, U_PEND) and the
-balanced ``passign`` table.  The fresh TEA seed of a lane moving to its next
-pixel is computed inline (the same hash of the same operands), so u32 rows
-0-7 match the JAX state row for row.
+The in-kernel call merge: a launch renders ``n_calls`` progressive calls
+(scalar slots ``S_NCALLS``, ``S_SPPLAST``: numbers number..number+n_calls-1,
+``spp`` samples each and ``spp_last`` in the last) of each pixel before the
+lane moves on; ``cur`` is flushed at every call boundary, so the
+accumulator receives the host loop's adds in its order, bit for bit.  The
+JAX kernel's hoisted fresh-seed rows (its u32 rows 9-11, a Mosaic scheduling
+device) are computed inline here: the same hash of the same operands.  The
+port's u32 rows 0-7 are the JAX rows 0-7 and its row 9 (``U_CALL``) is the
+JAX row 8.
+
+``iterstats``: the JAX ``ablate=("iterstats",)`` probe: red counts the
+issued iterations of the lane's current (pixel, call) chunk instead of
+colour; green and blue stay colour.
 
 ``grid_megakernel_step`` launches the hand-written CUDA kernel
 (``csrc/gridkernel.cu``) for CUDA state and the plain torch version
@@ -48,7 +60,7 @@ State layout (rows of [rows, lanes] tensors):
         0-15 and 18-20; its rows 16-17 are unused and its acc rows are the
         accumulator)
   int32 (u32 bits): 0 seed | 1 m | 2 sidx | 3 depth | 4 alive | 5 marching
-        | 6 icx | 7 icz | 8 lane0
+        | 6 icx | 7 icz | 8 lane0 | 9 call
 bkey is the winner: the sphere id for grid hits, 4096 + id for global hits.
 """
 
@@ -62,9 +74,10 @@ from ..models.grid import (G_CMAXX, G_CMAXZ, G_CMINX, G_CMINZ, G_CY, G_INVS,
 from . import fp
 from . import rng as rngops
 from .intersect import BIG
-from .megakernel import (S_NUMBER, S_OFFX, S_SEEDY0, S_SPP, S_Y0, SKY, TMAX,
-                         TMIN, _check_state, _cuda_args, _rr_args,
-                         camera_rays_rows, count_work, rr_probability)
+from .megakernel import (S_NCALLS, S_NUMBER, S_OFFX, S_SEEDY0, S_SPP,
+                         S_SPPLAST, S_Y0, SKY, TMAX, TMIN, _check_state,
+                         _cuda_args, _rr_args, camera_rays_rows, count_work,
+                         rr_probability)
 from .shading_rows import norm3, shade_rows
 
 K_STEPS = 40  # wavefront iterations per launch
@@ -74,8 +87,8 @@ R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
 R_TB, R_TE, R_TNX, R_TNZ, R_BKEY = 11, 12, 13, 14, 15
 R_CUR = 16
 F_ROWS = R_CUR + 3
-U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH, U_ICX, U_ICZ, U_LANE0 = range(9)
-U_ROWS = 9
+U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH, U_ICX, U_ICZ, U_LANE0, U_CALL = range(10)
+U_ROWS = 10
 
 TAG = 4096.0  # bkey values >= TAG are global-table winners (TAG + id)
 MAX_G = 32  # rows of gtab / gttab the kernel stages (models/grid.py MAX_GTAB)
@@ -86,11 +99,26 @@ def layout(grid):
     return bool(grid.five), int(grid.n_slots), int(grid.cells.shape[1])
 
 
-def lane_pixel(m, lane0, n_lanes):
+def lane_pixel(m, lane0, n_lanes, passign=None, p_total=None):
     """The pixel of slot ``m`` of the lane with home index ``lane0``: M
-    strided pixels per lane.  The kernel's ``lane_pixel`` is the same
-    formula; the balanced table (ROADMAP queue 1, item 2) replaces both."""
-    return m * n_lanes + lane0
+    strided pixels per lane, or ``passign[m, lane0]`` (int64 tensors); a
+    slot outside the table is ``p_total``, no pixel.  The kernel's
+    ``lane_pixel`` is the same function."""
+    if passign is None:
+        return m * n_lanes + lane0
+    m_slots = passign.shape[0]
+    pix = passign[m.clamp(0, m_slots - 1), lane0].to(torch.int64)
+    return torch.where((m >= 0) & (m < m_slots), pix, p_total)
+
+
+def _check_passign(passign, m_slots, n_lanes, device):
+    if passign is None:
+        return
+    if passign.dtype != torch.int32 or passign.device != device:
+        raise TypeError(f"passign must be int32 on {device}, got {passign.dtype} "
+                        f"on {passign.device}")
+    if passign.dim() != 2 or passign.shape[0] != m_slots or passign.shape[1] < n_lanes:
+        raise ValueError(f"passign {tuple(passign.shape)}, want ({m_slots}, >= {n_lanes})")
 
 
 def _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a, cx, cy, cz, kc, *,
@@ -128,22 +156,26 @@ def _slab_inv(o_c, d_c, inv, lo, hi, big):
 
 def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
                          n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
-                         j_steps=J_STEPS, skip_tmax=False, rr=None):
+                         j_steps=J_STEPS, skip_tmax=False, rr=None,
+                         passign=None, iterstats=False):
     """``k_steps`` grid-traced wavefront iterations over the state's lanes.
 
     ``grid``: CellTables of torch tensors on the state's device.  fstate
     [F_ROWS, n] f32, ustate [U_ROWS, n] int32, any n; ``acc`` [p_total, 3]
-    f32, the band's pixel sums in home order, updated in place.  Returns new
-    (fstate, ustate).  CUDA tensors launch the kernel; CPU tensors run
-    ``grid_megakernel_step_plain``."""
+    f32, the band's pixel sums in home order, updated in place.
+    ``passign``: None (M strided pixels per lane) or the balanced table,
+    int32 [m_slots, n_pad] indexed by slot and ``U_LANE0``; ``iterstats``:
+    the cost probe.  Returns new (fstate, ustate).  CUDA tensors launch the
+    kernel; CPU tensors run ``grid_megakernel_step_plain``."""
     _check_state(fstate, ustate, F_ROWS, U_ROWS)
     if acc.shape != (p_total, 3) or acc.dtype != torch.float32:
         raise ValueError(f"acc {tuple(acc.shape)} {acc.dtype}, want ({p_total}, 3) float32")
     if j_steps < 1:
         raise ValueError(f"j_steps must be >= 1, got {j_steps}")
+    _check_passign(passign, m_slots, n_lanes, fstate.device)
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
               max_depth=max_depth, k_steps=k_steps, j_steps=j_steps,
-              skip_tmax=skip_tmax, rr=rr)
+              skip_tmax=skip_tmax, rr=rr, passign=passign, iterstats=iterstats)
     if fstate.device.type == "cpu":
         return grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, **kw)
     if fstate.device.type != "cuda":
@@ -167,13 +199,17 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     tensors = dict(scal=scal, vpr=vpr, gscal=g.gscal, gtab=g.gtab, gttab=g.gttab,
                    cells=g.cells, attrs=g.attrs)
     dtypes = dict(scal=i32, vpr=f32, gscal=f32, gtab=f32, gttab=f32, cells=f32,
-                  attrs=f32, tattrs=f32, fstate=f32, ustate=i32, acc=f32)
+                  attrs=f32, tattrs=f32, passign=i32, fstate=f32, ustate=i32, acc=f32)
     if g.tattrs is not None:
         tensors["tattrs"] = g.tattrs
+    if passign is not None:
+        tensors["passign"] = passign
     tensors.update(fstate=fstate, ustate=ustate, acc=acc)
     ptrs = _cuda_args(tensors, dtypes, fstate.device)
     if g.tattrs is None:
         ptrs.insert(7, None)
+    if passign is None:
+        ptrs.insert(8, None)
     for name in ("cells", "attrs", "tattrs"):
         t = getattr(g, name)
         if t is not None and t.data_ptr() % 16:
@@ -184,7 +220,8 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
         *ptrs, fout.data_ptr(), uout.data_ptr(),
         g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride,
         fstate.shape[1], m_slots, n_lanes, p_total, width, max_depth, k_steps,
-        j_steps, int(bool(skip_tmax)), *_rr_args(rr),
+        j_steps, int(bool(skip_tmax)), 0 if passign is None else passign.shape[1],
+        int(bool(iterstats)), *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"grid kernel launch failed: {_build.error_string(err)}")
@@ -198,18 +235,20 @@ grid_megakernel_step.launches = 0
 def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
                                n_lanes, p_total, width, max_depth,
                                k_steps=K_STEPS, j_steps=J_STEPS,
-                               skip_tmax=False, rr=None, work=None):
+                               skip_tmax=False, rr=None, passign=None,
+                               iterstats=False, work=None):
     """The plain torch version of ``grid_megakernel_step``: the JAX
-    ``_iterate`` (n_calls = 1, no passign) vectorized over lanes, with the
-    same operand order as the CUDA kernel, on the same CellTables; ``acc``
-    is updated in place.  ``work``: optional dict that receives the counts
-    of ``megakernel.count_work``."""
+    ``_iterate`` vectorized over lanes, with the same operand order as the
+    CUDA kernel, on the same CellTables; ``acc`` is updated in place.
+    ``work``: optional dict that receives the counts of
+    ``megakernel.count_work``."""
     grid_megakernel_step_plain.launches += 1
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()
     sc = [int(x) for x in scal.reshape(-1)[:8].tolist()]
     spp, number = sc[S_SPP], sc[S_NUMBER] & rngops.MASK
+    n_calls, spp_last = sc[S_NCALLS], sc[S_SPPLAST]
     y0, seed_y0, offx = sc[S_Y0], sc[S_SEEDY0], sc[S_OFFX]
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
 
@@ -237,10 +276,14 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     icx = u[U_ICX].to(torch.int64)
     icz = u[U_ICZ].to(torch.int64)
     lane0 = u[U_LANE0].to(torch.int64)
+    cidx = u[U_CALL].to(torch.int64)
+    alive_f = torch.zeros_like(t_b)
 
     for _ in range(k_steps):
         if not bool(alive.any()):
             break  # dead lanes are a fixed point of the iteration
+        if iterstats:  # every issued iteration, marching ones too
+            alive_f = alive.to(torch.float32)
         a = dx * dx + dy * dy + dz * dz
         od = ox * dx + oy * dy + oz * dz
         oo = ox * ox + oy * oy + oz * oz
@@ -371,37 +414,51 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
         term = seg_done & ~cont_b
         light = [torch.where(hit, torch.where(does_scatter, 0.0, al), sky)
                  for al, sky in zip((ax, ay, az), SKY)]
+        red = cur[0] + alive_f if iterstats else None
         cur = [cv + torch.where(term, tc * lc, 0.0)
                for cv, tc, lc in zip(cur, (tx_, ty_, tz_), light)]
+        if iterstats:
+            cur[0] = red
 
         seed_a = torch.where(seg_done & hit, seed_h, seed)
         if rr is not None:
             seed_a = torch.where(considered, seed_rr, seed_a)
 
-        # ---- flush the finished pixel's sum into its accumulator slot -----
-        more = term & (sidx < spp)
-        pix_done = term & ~more
-        pix = lane_pixel(mrow, lane0, n_lanes)
-        flush = pix_done & (mrow >= 0) & (mrow < m_slots) & (pix < p_total)
+        # ---- flush the finished (pixel, call) chunk's sum into its slot --
+        cur_spp = torch.where(cidx + 1 >= n_calls, spp_last, spp)
+        more = term & (sidx < cur_spp)
+        chunk_done = term & ~more
+        pix = lane_pixel(mrow, lane0, n_lanes, passign, p_total)
+        flush = chunk_done & (mrow >= 0) & (mrow < m_slots) & (pix < p_total)
         if work is not None:
             count_work(work, flushes=flush.sum())
         if bool(flush.any()):  # one lane per pixel: the indices are distinct
             idx = pix[flush]
             acc[idx] = acc[idx] + torch.stack(cur, dim=1)[flush]
-        cur = [torch.where(pix_done, 0.0, cv) for cv in cur]
+        cur = [torch.where(chunk_done, 0.0, cv) for cv in cur]
 
-        # ---- regen: next sample or next pixel ------------------------------
+        # ---- regen: next sample, next call of the pixel, or next pixel -----
+        more_calls = chunk_done & (cidx + 1 < n_calls)
+        pix_done = chunk_done & ~more_calls
         m2 = mrow + pix_done.to(torch.int64)
-        pix2 = lane_pixel(m2, lane0, n_lanes)
+        pix2 = lane_pixel(m2, lane0, n_lanes, passign, p_total)
         adv = pix_done & (m2 < m_slots) & (pix2 < p_total)
         px2 = pix2 % width
         py2 = pix2 // width
         fx2 = (offx + px2).to(torch.float32)
         fy2 = (y0 + py2).to(torch.float32)
-        fresh = rngops.tea_hash(rngops.tea_hash(px2, seed_y0 + py2),
-                                torch.full_like(px2, number))
-        regen = more | adv
-        seed_c = torch.where(adv, fresh, seed_a)
+        fresh_np = rngops.tea_hash(rngops.tea_hash(px2, seed_y0 + py2),
+                                   torch.full_like(px2, number))
+        seed_c = seed_a
+        if n_calls > 1:  # the same pixel's next call (fx, fy hold its pixel)
+            px_cur = (fx - float(offx)).to(torch.int64)
+            py_cur = (fy - float(y0)).to(torch.int64)
+            fresh_nc = rngops.tea_hash(rngops.tea_hash(px_cur, seed_y0 + py_cur),
+                                       (number + cidx + 1) & rngops.MASK)
+            seed_c = torch.where(more_calls, fresh_nc, seed_a)
+        seed_c = torch.where(adv, fresh_np, seed_c)
+        renew = more_calls | adv
+        regen = more | renew
         fxn = torch.where(adv, fx2, fx)
         fyn = torch.where(adv, fy2, fy)
         seed_r, (cox, coy, coz), (cdx, cdy, cdz) = camera_rays_rows(
@@ -420,7 +477,8 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
         tz_ = torch.where(cont_b, ntz, torch.where(regen, 1.0, tz_))
         seed = torch.where(seg_done, torch.where(regen, seed_r, seed_a), seed)
         mrow = m2
-        sidx = torch.where(adv, 1, sidx + more.to(torch.int64))
+        cidx = torch.where(pix_done, 0, cidx + more_calls.to(torch.int64))
+        sidx = torch.where(renew, 1, sidx + more.to(torch.int64))
         depth = torch.where(cont_b, depth + 1, torch.where(regen, 0, depth))
         alive = marching | (seg_done & (cont_b | regen))
 
@@ -429,7 +487,7 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
         f[r] = v
     u[U_SEED] = rngops.to_i32(seed)
     for r, v in ((U_M, mrow), (U_SIDX, sidx), (U_DEPTH, depth), (U_ALIVE, alive),
-                 (U_MARCH, marching), (U_ICX, icx), (U_ICZ, icz)):
+                 (U_MARCH, marching), (U_ICX, icx), (U_ICZ, icz), (U_CALL, cidx)):
         u[r] = v.to(torch.int32)
     return f, u
 

@@ -21,7 +21,9 @@ Backends:
   grid DDA) until no lane is alive.  The brute-force state carries the pixel
   sums in accumulator rows, unpacked at the end; the grid step adds them
   into a separate home-order accumulator, and the loop launches over the
-  live lanes only.
+  live lanes only.  The grid backend alone takes the in-kernel call merge
+  (``n_calls``, ``spp_last``), the balanced pixel->lane table (``passign``)
+  and the iterstats probe (``ablate=("iterstats",)``).
 - ``paged``: the same loop over the paged-grid step (``ops/pagedkernel.py``)
   with the live lanes sorted by page and compacted before every launch, and
   the pixel sums in a home-order accumulator (``_render_band_paged``).
@@ -57,9 +59,6 @@ from .intersect import (intersect_bruteforce, intersect_matmul,
 _SKY = (0.7, 0.8, 1.0)  # shader.rmiss:15
 LANE_PAD = 128  # kernel lanes are padded to a multiple of one CUDA block
 
-# out-of-slice options; each raises NotImplementedError naming its ROADMAP item
-_TODO_MERGE = "the in-kernel call merge (ROADMAP queue 1, item 1)"
-_TODO_BALANCE = "balanced lanes, passign (ROADMAP queue 1, item 2)"
 SPEC_BACKENDS = ("bruteforce", "matmul", "pallas")
 KERNEL_BACKENDS = ("mega", "grid", "paged")
 
@@ -254,15 +253,18 @@ def _pixel_init(pix, number, *, width, y0, seed_y0, offset_x):
     return fx, fy, seed0
 
 
-def _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign):
-    if n_calls is not None or spp_last is not None:
-        raise NotImplementedError(f"n_calls/spp_last: {_TODO_MERGE}")
-    if passign is not None:
-        raise NotImplementedError(f"passign: {_TODO_BALANCE}")
-    if ablate:
+def _check_options(backend, ablate, grid_steps, n_calls, spp_last, passign):
+    if (n_calls is not None or spp_last is not None) and backend != "grid":
+        raise ValueError("in-kernel call merging is a grid-backend feature")
+    if passign is not None and backend != "grid":
+        raise ValueError("balanced pixel assignment is a grid-backend feature")
+    probes = tuple(a for a in ablate if a != "iterstats")
+    if probes:
         raise NotImplementedError(
-            f"ablate={tuple(ablate)}: the Mosaic cost probes are not carried "
+            f"ablate={probes}: the Mosaic cost probes are not carried "
             "over to the port (ROADMAP, 'What does not carry over')")
+    if ablate and backend != "grid":
+        raise ValueError("the iterstats probe is a grid-backend feature")
     if grid_steps is not None:
         raise NotImplementedError(
             f"grid_steps={tuple(grid_steps)}: the grid-step probes are not "
@@ -293,7 +295,8 @@ def render_band(
     spp_last=None,
     rr=None,
     passign=None,
-) -> torch.Tensor:
+    return_iters: bool = False,
+):
     """Render one row band; returns the accumulated color sum [band_h, W, 3]
     (f32, on the scene's device).
 
@@ -302,17 +305,39 @@ def render_band(
     bounce loop.  ``pixels_per_lane`` (M): each lane renders M strided pixels
     (pixel of lane k, slot m = m*n_lanes + k); the image is identical for
     any M.  ``rr=(d0, d1, pmin)`` is fast mode's Russian roulette; None is
-    the exact reference stream."""
-    _check_slice(backend, ablate, grid_steps, n_calls, spp_last, passign)
+    the exact reference stream.
+
+    Grid backend only: ``n_calls`` merges that many progressive calls into
+    the launches (numbers number..number+n_calls-1, ``spp`` samples each,
+    ``spp_last`` in the last), bit-identical to the same calls issued one by
+    one with the accumulator carried; ``passign`` (int32 [m_slots, n_pad],
+    numpy or tensor, runtime/balance.py) deals the band's pixels to lanes,
+    the image unchanged for any table; ``ablate=("iterstats",)`` renders
+    the cost probe (red = issued iterations per pixel).  ``return_iters``:
+    return (acc, (tile_iters, lane_slots)), the launches' iterations summed
+    over their blocks of ``LANE_PAD`` lanes and over their lane slots."""
+    _check_options(backend, ablate, grid_steps, n_calls, spp_last, passign)
     kw = dict(band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
               offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
               max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
+    iters = [0, 0]
     if backend == "paged":
-        return _render_band_paged(scene, vp, skip_tmax=skip_tmax, **kw)
-    if backend in KERNEL_BACKENDS:
-        return _render_band_mega(scene, vp, skip_tmax=skip_tmax,
-                                 backend=backend, **kw)
-    return _render_band_spec(scene, vp, backend=backend, **kw)
+        acc = _render_band_paged(scene, vp, skip_tmax=skip_tmax, iters=iters, **kw)
+    elif backend in KERNEL_BACKENDS:
+        acc = _render_band_mega(scene, vp, skip_tmax=skip_tmax, backend=backend,
+                                n_calls=n_calls, spp_last=spp_last, passign=passign,
+                                iterstats="iterstats" in ablate, iters=iters, **kw)
+    else:
+        acc = _render_band_spec(scene, vp, backend=backend, iters=iters, **kw)
+    return (acc, tuple(iters)) if return_iters else acc
+
+
+def _count_iters(iters, k_steps, n_lanes):
+    """Add a launch of ``k_steps`` iterations over ``n_lanes`` lanes to
+    ``iters`` = [tile_iters, lane_slots], in blocks of ``LANE_PAD`` lanes."""
+    blocks = -(-n_lanes // LANE_PAD)
+    iters[0] += k_steps * blocks
+    iters[1] += k_steps * blocks * LANE_PAD
 
 
 def _shade_inputs(backend, scene: DeviceScene, o, d, n_valid=None):
@@ -345,7 +370,7 @@ def _shade_inputs(backend, scene: DeviceScene, o, d, n_valid=None):
 
 def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                       number, accum_init, max_depth, pixels_per_lane, rr,
-                      backend="bruteforce"):
+                      backend="bruteforce", iters=None):
     """The generic wavefront loop (JAX ``render_band_core``) in eager torch:
     the spec path the kernels are held against (``bruteforce``), and the
     ``matmul`` / ``pallas`` closest-hit variants."""
@@ -380,6 +405,8 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     n_valid = int(scene.valid.sum()) if backend == "pallas" else None
 
     while bool(alive.any()):
+        if iters is not None:
+            _count_iters(iters, 1, n)
         t, hit, center, mat, tex, c0, c1, attr = _shade_inputs(backend, scene, o, d,
                                                                n_valid)
 
@@ -469,14 +496,19 @@ def _state_module(scene, backend, m_slots):
 
 def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
                width, y0, seed_y0, offset_x, spp, number, accum_init=None,
-               pixels_per_lane=1, lane_pad=LANE_PAD):
+               pixels_per_lane=1, lane_pad=LANE_PAD, n_calls=None,
+               spp_last=None, passign=None):
     """Pack a band's initial wavefront state for the kernel steps.
 
     Returns (fstate [rows, n_pad] f32, ustate [U_ROWS, n_pad] int32
     holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
-    Slot 0 of lane k is pixel k; ``grid`` and ``paged`` state also holds k
-    in its ``U_LANE0`` row and has no accumulator rows (``home_accum`` makes
-    its accumulator, and ``accum_init`` raises).  The first camera ray comes
+    Slot 0 of lane k is pixel k, or ``passign[0, k]`` when a balanced table
+    int32 [m_slots, n_pad] is given (grid only; a lane whose entry is the
+    ``p_total`` sentinel starts dead); ``grid`` and ``paged`` state also
+    holds k in its ``U_LANE0`` row and has no accumulator rows
+    (``home_accum`` makes its accumulator, and ``accum_init`` raises).
+    ``n_calls`` / ``spp_last`` fill the scalar slots of the grid kernel's
+    call merge (default: one call of ``spp``).  The first camera ray comes
     from the kernels' own ``camera_rays_rows``, so every sample of the
     kernel path is generated by one formula and the image is bit-identical
     for any M.  (The JAX drivers
@@ -494,7 +526,16 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     mk, rf = _state_module(scene, backend, m_slots)
 
     lane = torch.arange(n_pad, dtype=torch.int64, device=dev)
-    fx0, fy0, seed0 = _pixel_init(lane, number, width=width, y0=y0,
+    if passign is None:
+        pix0 = lane
+        alive0 = lane < n
+    else:
+        if tuple(passign.shape) != (m_slots, n_pad) or passign.dtype != torch.int32:
+            raise ValueError(f"passign {tuple(passign.shape)} {passign.dtype}, want "
+                             f"({m_slots}, {n_pad}) int32")
+        pix0 = passign[0].to(torch.int64)
+        alive0 = pix0 < p_total
+    fx0, fy0, seed0 = _pixel_init(pix0, number, width=width, y0=y0,
                                   seed_y0=seed_y0, offset_x=offset_x)
     vpr = torch.from_numpy(viewport_scalars(vp)).to(dev)
     seed, o, d = megakernel.camera_rays_rows(seed0, fx0, fy0, vpr)
@@ -520,7 +561,7 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     ustate = torch.zeros((mk.U_ROWS, n_pad), dtype=torch.int32, device=dev)
     ustate[mk.U_SEED] = rngops.to_i32(seed)
     ustate[mk.U_SIDX] = 1
-    ustate[mk.U_ALIVE] = ((lane < n) & (spp > 0)).to(torch.int32)
+    ustate[mk.U_ALIVE] = (alive0 & (spp > 0)).to(torch.int32)
     if home:
         ustate[mk.U_LANE0] = lane.to(torch.int32)
 
@@ -530,8 +571,8 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     s[0, megakernel.S_Y0] = y0
     s[0, megakernel.S_SEEDY0] = seed_y0
     s[0, megakernel.S_OFFX] = offset_x
-    s[0, megakernel.S_NCALLS] = 1
-    s[0, megakernel.S_SPPLAST] = spp
+    s[0, megakernel.S_NCALLS] = 1 if n_calls is None else n_calls
+    s[0, megakernel.S_SPPLAST] = spp if spp_last is None else spp_last
     scal = torch.from_numpy(s.astype(np.int32)).to(dev)
     geom = dict(m_slots=m_slots, n_lanes=n, p_total=p_total, width=width)
     return fstate, ustate, scal, vpr, geom
@@ -562,7 +603,8 @@ def unpack_accum(fstate, *, band_h, width, m_slots, n_lanes, p_total):
 
 def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                       number, accum_init, max_depth, pixels_per_lane,
-                      skip_tmax, backend, rr=None):
+                      skip_tmax, backend, rr=None, n_calls=None, spp_last=None,
+                      passign=None, iterstats=False, iters=None):
     """Kernel loop: pack the [rows, lanes] state, launch the wavefront step
     until no lane is alive (one host sync per launch).  backend="mega"
     brute-forces the sphere table (ops/megakernel.py) and its accumulator
@@ -570,26 +612,37 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     (ops/gridkernel.py, requires grid tables) with identical results: its
     step adds the pixel sums into a home-order accumulator, and before every
     launch the live lanes are compacted (in lane order, their count read in
-    the launch's one host sync), so no block runs for a dead lane."""
+    the launch's one host sync), so no block runs for a dead lane.  The
+    balanced table needs no gather of the carried accumulator and no
+    scatter at the end (the JAX driver's slot layout): the step adds each
+    chunk into ``acc`` at its pixel."""
     from . import gridkernel, megakernel
 
     if backend == "grid" and scene.grid is None:
         raise ValueError("grid backend requires a grid-able scene")
+    dev = scene.table.device
+    if passign is not None:
+        passign = torch.as_tensor(passign, dtype=torch.int32, device=dev)
     fstate, ustate, scal, vpr, geom = pack_state(
         scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
         seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
         accum_init=None if backend == "grid" else accum_init,
-        pixels_per_lane=pixels_per_lane)
+        pixels_per_lane=pixels_per_lane, n_calls=n_calls, spp_last=spp_last,
+        passign=passign)
     if backend == "grid":
-        acc = home_accum(accum_init, geom["p_total"], fstate.device)
+        acc = home_accum(accum_init, geom["p_total"], dev)
+        k = gridkernel.K_STEPS
         common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
-                      k_steps=gridkernel.K_STEPS, j_steps=gridkernel.J_STEPS)
+                      k_steps=k, j_steps=gridkernel.J_STEPS, passign=passign,
+                      iterstats=iterstats)
         while True:
             live = live_lanes(ustate[gridkernel.U_ALIVE])
             if live.numel() == 0:
                 break
             if live.numel() < ustate.shape[1]:
                 fstate, ustate = gather_lanes(fstate, ustate, live)
+            if iters is not None:
+                _count_iters(iters, k, live.numel())
             fstate, ustate = gridkernel.grid_megakernel_step(
                 scal, vpr, scene.grid, fstate, ustate, acc, **common)
         return acc.reshape(band_h, width, 3)
@@ -600,6 +653,8 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
                   k_steps=megakernel.K_STEPS)
     while bool((ustate[megakernel.U_ALIVE] != 0).any()):
+        if iters is not None:
+            _count_iters(iters, megakernel.K_STEPS, ustate.shape[1])
         fstate, ustate = megakernel.megakernel_step(
             scal, vpr, scene.table, atab, fstate, ustate, n_valid=n_valid, **common)
     return unpack_accum(fstate, band_h=band_h, **geom)
@@ -697,7 +752,7 @@ def gather_lanes(fstate, ustate, perm):
 
 def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
                        spp, number, accum_init, max_depth, pixels_per_lane,
-                       skip_tmax, rr=None):
+                       skip_tmax, rr=None, iters=None):
     """Paged-grid driver (JAX ``_render_band_paged``, Morton key, carried
     winner attributes).  Before every launch of ``scaled_k(n)`` iterations
     the live lanes are sorted by page and gathered into the next launch's
@@ -722,6 +777,8 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
         if perm.numel() == 0:
             break
         fstate, ustate = gather_lanes(fstate, ustate, perm)
+        if iters is not None:
+            _count_iters(iters, k, perm.numel())
         fstate, ustate, key = pagedkernel.paged_megakernel_step(
             scal, vpr, g, fstate, ustate, acc, **common)
     return acc.reshape(band_h, width, 3)

@@ -2,7 +2,10 @@
 
 Port of ``raytrace_tpu/runtime/renderer.py``: backend resolution, the
 pixels-per-lane pick, row-band chunking (one ``render_band`` call per band),
-progressive multi-call accumulation and the u8 display image.
+progressive multi-call accumulation (on the grid backend merged in the
+kernel, ``calls_per_exec`` calls per dispatch), the balanced pixel->lane
+tables (``enable_balance``), checkpoint and resume, the frame-loop
+benchmark and the u8 display image.
 
 Chunking is seed-transparent: bands seed from global pixel coordinates, so
 any ``chunk_rows`` gives bit-identical output to an unchunked render.
@@ -10,6 +13,8 @@ any ``chunk_rows`` gives bit-identical output to an unchunked render.
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -19,9 +24,9 @@ from ..config import RenderConfig
 from ..models.camera import Camera
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
-from ..ops.trace import (_TODO_BALANCE, _TODO_MERGE, DeviceScene,
-                         device_scene_from_numpy, prepare_scene, render_band,
-                         tmax_never_binds, viewport_arrays)
+from ..ops.trace import (LANE_PAD, DeviceScene, device_scene_from_numpy,
+                         prepare_scene, render_band, tmax_never_binds,
+                         viewport_arrays)
 
 # lanes per band: the spec paths materialise [lanes, spheres] (and
 # bruteforce [lanes, spheres, 3]) intersection temporaries; the kernel steps
@@ -96,19 +101,13 @@ class Renderer:
                  device="cuda"):
         if config.chips > 1:
             raise NotImplementedError(
-                "chips > 1: row bands over several devices (ROADMAP queue 1, item 5)")
-        if config.calls_per_exec > 1:
-            raise NotImplementedError(f"calls_per_exec > 1: {_TODO_MERGE}")
-        if config.balance_spp > 0:
-            raise NotImplementedError(f"balance_spp > 0: {_TODO_BALANCE}")
+                "chips > 1: row bands over several devices (ROADMAP queue 1, item 2)")
         if config.accum_dtype not in ("float32", "float64"):
             raise ValueError(f"unsupported accum_dtype: {config.accum_dtype!r}")
         self.config = config
         self.device = render_device(device)
         self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
-        self.device_scene = device_scene_from_numpy(prepare_scene(self.scene),
-                                                    self.device)
-        self.backend = resolve_backend(config.backend, self.device_scene)
+        self.set_scene(self.scene)
         w, h = config.width, config.height
         if config.pixels_per_lane is not None:
             self.pixels_per_lane = config.pixels_per_lane
@@ -119,28 +118,91 @@ class Renderer:
             self.pixels_per_lane = int(np.clip(-(-(w * h) // target), 1, M_MAX))
         target = _TARGET_LANES.get(self.backend, 1 << 14)
         self.chunk_rows = max(1, min(h, (target * self.pixels_per_lane) // max(w, 1)))
-        cam = config_camera(config)
-        self.vp = viewport_arrays(cam, w, h)
-        self.skip_tmax = tmax_never_binds(self.scene, cam)
+        self.vp = viewport_arrays(config_camera(config), w, h)
+        # balanced pixel->lane tables per band (runtime/balance.py), built on
+        # demand when config.balance_spp > 0, or by enable_balance
+        self._passign = None
+        self.balance_stats = None
 
-    def render_call(self, spp: int, number: int = 0, accum=None) -> torch.Tensor:
+    def set_scene(self, scene: SceneArrays) -> None:
+        """Render ``scene`` from now on: its tables go to the device and the
+        backend is resolved again."""
+        self.scene = scene
+        self.device_scene = device_scene_from_numpy(prepare_scene(scene), self.device)
+        self.backend = resolve_backend(self.config.backend, self.device_scene)
+        self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
+
+    def _bands(self):
+        h = self.config.height
+        for band_y0 in range(0, h, self.chunk_rows):
+            yield band_y0, min(self.chunk_rows, h - band_y0)
+
+    def _band_kwargs(self, band_y0, band_h):
+        cfg = self.config
+        return dict(scene=self.device_scene, vp=self.vp, band_h=band_h,
+                    width=cfg.width, y0=band_y0,
+                    seed_y0=band_y0,  # global coords: chunk-invariant
+                    offset_x=0, max_depth=cfg.max_depth, backend=self.backend,
+                    pixels_per_lane=self.pixels_per_lane,
+                    skip_tmax=self.skip_tmax, rr=cfg.rr)
+
+    def render_call(self, spp: int, number: int = 0, accum=None, n_calls=None,
+                    spp_last=None, return_iters: bool = False):
         """One render call (= one traceRaysKHR dispatch): ``spp`` samples per
         pixel.  Returns the accumulated color sum [H, W, 3] (f32 tensor on
-        the device, pre-gamma); ``accum`` carries the running sum."""
+        the device, pre-gamma); ``accum`` carries the running sum.
+        ``n_calls``/``spp_last`` (grid backend): merge that many progressive
+        calls into this one dispatch (numbers number..number+n_calls-1,
+        ``spp`` each, ``spp_last`` for the final one), bit-identical to the
+        same calls issued separately.  ``return_iters``: return (accum,
+        tile_iters, lane_slots), the launches' iterations summed over their
+        blocks of ``LANE_PAD`` lanes and over their lane slots."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
+        if cfg.balance_spp and self.backend == "grid" and self._passign is None:
+            self.enable_balance()
+        if accum is not None:
+            accum = torch.as_tensor(accum, device=self.device)
         bands = []
-        for band_y0 in range(0, h, self.chunk_rows):
-            band_h = min(self.chunk_rows, h - band_y0)
-            init = None if accum is None else accum[band_y0 : band_y0 + band_h]
-            bands.append(render_band(
-                self.device_scene, self.vp, band_h=band_h, width=w,
-                y0=band_y0, seed_y0=band_y0,  # global coords: chunk-invariant
-                offset_x=0, spp=spp, number=number, accum_init=init,
-                max_depth=cfg.max_depth, backend=self.backend,
-                pixels_per_lane=self.pixels_per_lane, skip_tmax=self.skip_tmax,
-                rr=cfg.rr))
-        return torch.cat(bands, dim=0)
+        tile_iters = lane_slots = 0
+        for band_y0, band_h in self._bands():
+            out = render_band(
+                **self._band_kwargs(band_y0, band_h), spp=spp, number=number,
+                accum_init=None if accum is None else accum[band_y0 : band_y0 + band_h],
+                n_calls=n_calls, spp_last=spp_last,
+                passign=None if self._passign is None else self._passign.get(band_y0),
+                return_iters=return_iters)
+            if return_iters:
+                out, (ti, ls) = out
+                tile_iters += ti
+                lane_slots += ls
+            bands.append(out)
+        acc = torch.cat(bands, dim=0)
+        return (acc, tile_iters, lane_slots) if return_iters else acc
+
+    def enable_balance(self, probe_spp: Optional[int] = None) -> dict:
+        """Measure per-pixel costs with the grid kernel's iterstats probe and
+        build a balanced pixel->lane table per band (runtime/balance.py).
+        The image is bit-identical with or without the tables; only the
+        lanes' straggler tail moves.  Returns per-band {max_over_mean, lanes,
+        issued_per_sample} diagnostics."""
+        from . import balance as bal
+
+        if self.backend != "grid":
+            raise ValueError("balanced assignment is a grid-backend feature")
+        spp = probe_spp or self.config.balance_spp or 32
+        tables, stats = {}, {}
+        for band_y0, band_h in self._bands():
+            cost = bal.measure_cost_map(
+                dict(self._band_kwargs(band_y0, band_h), number=0), spp)
+            tab = bal.build_passign(cost, self.pixels_per_lane, LANE_PAD)
+            tables[band_y0] = torch.from_numpy(tab).to(self.device)
+            stats[band_y0] = bal.balance_stats(cost, tab, self.pixels_per_lane)
+            # mean issued (busy) iterations per sample from the probe
+            stats[band_y0]["issued_per_sample"] = float(
+                np.asarray(cost, np.float64).mean() / spp)
+        self._passign = tables
+        self.balance_stats = stats
+        return stats
 
     def render(self, samples: Optional[int] = None, on_chunk=None):
         """Full render: ``samples`` total spp, split into progressive calls
@@ -155,15 +217,33 @@ class Renderer:
         number = 0
         done = 0
         accum = None
-        while done < total:
-            spp = min(per_call, total - done)
-            if cfg.accum_dtype == "float64":
+        if cfg.accum_dtype == "float64":
+            while done < total:
+                spp = min(per_call, total - done)
                 chunk = self.render_call(spp, number=number).to(torch.float64)
                 accum = chunk if accum is None else accum + chunk
+                done += spp
+                number += 1
+                if on_chunk is not None:
+                    on_chunk(accum, done)
+            return accum, total
+        # grid backend: up to calls_per_exec progressive calls merged into one
+        # dispatch; the output is bit-identical for any grouping, and
+        # on_chunk fires once per dispatch
+        group_max = max(1, cfg.calls_per_exec) if self.backend == "grid" else 1
+        while done < total:
+            remaining = total - done
+            nc = min(group_max, -(-remaining // per_call))
+            if nc > 1:
+                spp_last = min(per_call, remaining - (nc - 1) * per_call)
+                accum = self.render_call(per_call, number=number, accum=accum,
+                                         n_calls=nc, spp_last=spp_last)
+                step = (nc - 1) * per_call + spp_last
             else:
-                accum = self.render_call(spp, number=number, accum=accum)
-            done += spp
-            number += 1
+                step = min(per_call, remaining)
+                accum = self.render_call(step, number=number, accum=accum)
+            done += step
+            number += nc
             if on_chunk is not None:
                 on_chunk(accum, done)
         return accum, total
@@ -172,3 +252,73 @@ class Renderer:
         """Render and tonemap to the display image (u8 RGB, host array)."""
         accum, total = self.render(samples)
         return imageops.accum_to_u8(accum, total).cpu().numpy()
+
+    def save_state(self, path: str, accum, samples_done: int, number: int) -> None:
+        """Checkpoint a progressive render (accumulator and progress)."""
+        np.savez(path, accum=torch.as_tensor(accum).cpu().numpy(),
+                 samples_done=samples_done, number=number,
+                 width=self.config.width, height=self.config.height)
+
+    def load_state(self, path: str):
+        """Returns (accum [H, W, 3] numpy, samples_done, number) for resuming
+        ``render``."""
+        z = np.load(path)
+        if (int(z["width"]), int(z["height"])) != (self.config.width, self.config.height):
+            raise ValueError("checkpoint resolution mismatch")
+        return z["accum"], int(z["samples_done"]), int(z["number"])
+
+    def render_resumable(self, total: int, checkpoint_path: Optional[str] = None,
+                         checkpoint_every: int = 0, max_retries: int = 2):
+        """Progressive render with checkpoint/resume and retry: each call's
+        accumulator is copied to the host, so a fault loses at most one
+        call's work and the call is retried.  Returns (accum [H, W, 3] f32
+        CPU tensor, samples done)."""
+        cfg = self.config
+        if checkpoint_every:
+            per_call = cfg.samples_per_call or max(1, checkpoint_every)
+        else:
+            per_call = cfg.samples_per_call or total
+        accum, done, number = None, 0, 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            accum, done, number = self.load_state(checkpoint_path)
+            accum = torch.from_numpy(accum)
+        retries = 0
+        while done < total:
+            spp = min(per_call, total - done)
+            try:
+                out = self.render_call(spp, number=number, accum=accum).cpu()
+            except Exception:
+                if retries >= max_retries:
+                    raise
+                retries += 1
+                continue  # accum (a host copy) is intact; retry the call
+            accum, done, number = out, done + spp, number + 1
+            if checkpoint_path and checkpoint_every and done < total:
+                self.save_state(checkpoint_path, accum, done, number)
+        return accum, done
+
+    def benchmark(self, min_seconds: float = 4.0, warmup: int = 1):
+        """Frame-loop benchmark with the reference's adaptive window:
+        duration_per_frame over >= (4 s + 50 dpf) / dpf frames
+        (ray_trace.cpp:86,741-748), each frame synchronised with the device.
+        Returns (dpf seconds, frames)."""
+        spp = self.config.samples
+
+        def frame():
+            out = self.render_call(spp)
+            if out.is_cuda:
+                torch.cuda.synchronize(out.device)
+
+        for _ in range(warmup):
+            frame()
+        t0 = time.perf_counter()
+        frame()
+        dpf = time.perf_counter() - t0
+        frames = max(1, int((min_seconds + 50.0 * dpf) / dpf)) if dpf > 0 else 1
+        frames = min(frames, 1000)
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            frame()
+        dpf = (time.perf_counter() - t0) / frames
+        print(f"duration_per_frame: {dpf * 1000.0:.3f} ms")
+        return dpf, frames

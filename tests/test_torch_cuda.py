@@ -13,7 +13,8 @@ sequence (nvcc --fmad=false, no fast math; CUDA's sinf on both sides).
 The cases cover what the smoke run does not: for the grid kernel the
 cell-major records of the 5-value slot layout, the textured field's
 ``tattrs`` and pitch 2's wider 4-value cells, on the driver's compacted live
-lanes with its home-order accumulator, and the compacted driver itself;
+lanes with its home-order accumulator, and the compacted driver itself; its
+call merge, balanced table and iterstats instance;
 fast mode, a carried accumulator and tables larger than one 512-row block;
 for the paged kernel all four instances of its template (varied-height and
 textured page layouts) on the driver's sorted and compacted lanes, its
@@ -101,6 +102,53 @@ def test_grid_kernel_matches_plain(cuda, name, rr):
         assert torch.equal(acc_k, acc_p)
         (f, u), acc = out_k, acc_k
     assert not torch.equal(acc, acc0)  # pixels were flushed
+
+
+VARIANTS = ("merged", "balanced", "iterstats")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_grid_kernel_variants_match_plain(cuda, variant, rr):
+    """The call merge (n_calls=3, a shorter last call), a balanced table
+    (a seeded permutation of the pixels) and the iterstats instance, each
+    four launches along one book-scene render on the driver's compacted live
+    lanes with a carried accumulator: state and accumulator == the plain
+    version's on every lane and pixel."""
+    from raytrace_tpu_torch.runtime.balance import build_passign
+
+    w, h, m = 128, 72, 2
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(generate_random_scene(0.0)), cuda)
+    vp = trace.viewport_arrays(reference_camera(), w, h)
+    extra, step = {}, {}
+    if variant == "merged":
+        extra = dict(n_calls=3, spp_last=1)
+    elif variant == "balanced":
+        g = torch.Generator().manual_seed(5)
+        tab = build_passign(torch.rand(w * h, generator=g).numpy(), m, trace.LANE_PAD)
+        extra = dict(passign=torch.from_numpy(tab).to(cuda))
+        step = dict(passign=extra["passign"])
+    else:
+        step = dict(iterstats=True)
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, vp, backend="grid", band_h=h, width=w, y0=0, seed_y0=0, offset_x=0,
+        spp=2, number=3, pixels_per_lane=m, **extra)
+    acc = trace.home_accum(torch.rand((h, w, 3), device=cuda), geom["p_total"], cuda)
+    acc0 = acc.clone()
+    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr, k_steps=10, **step)
+    for _ in range(4):
+        f, u = trace.gather_lanes(f, u, trace.live_lanes(u[gridkernel.U_ALIVE]))
+        acc_k, acc_p = acc.clone(), acc.clone()
+        out_k = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc_k, **kw)
+        out_p = gridkernel.grid_megakernel_step_plain(scal, vpr, ds.grid, f, u, acc_p, **kw)
+        torch.cuda.synchronize()
+        _assert_same(out_k, out_p)
+        assert torch.equal(acc_k, acc_p)
+        (f, u), acc = out_k, acc_k
+    assert not torch.equal(acc, acc0)  # chunks were flushed
+    if variant == "merged":
+        assert int(u[gridkernel.U_CALL].max()) > 0  # lanes reached a later call
 
 
 @pytest.mark.gpu

@@ -2,9 +2,11 @@
 
 ``raytrace_tpu_torch.ray_trace`` must reproduce the oracle golden through the
 public entry point (u8 within one level on all but 3 pixels, the chaos
-budget of tests/test_golden_fullscene.py), keep chunking and progressive
-calls exact, run every backend, refuse every option the port does not run
-yet by name, run on the CPU only when asked to, and never import jax.
+budget of tests/test_golden_fullscene.py), keep chunking, progressive calls,
+the call merge (``calls_per_exec``) and balanced lanes (``balance_spp``)
+exact, run every backend, checkpoint and resume (the cases of
+tests/test_runtime.py), refuse every option the port does not run yet by
+name, run on the CPU only when asked to, and never import jax.
 """
 
 import dataclasses
@@ -96,7 +98,6 @@ def test_mega_backend_and_three_sphere_scene_resolve_to_mega():
 
 @pytest.mark.parametrize("kw", [
     dict(gpu_count=2),
-    dict(balance_spp=8),
 ])
 def test_out_of_slice_ray_trace_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -158,19 +159,126 @@ def test_cuda_is_the_default_device():
 
 def test_out_of_slice_config_and_band_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(RenderConfig(samples=1, width=8, height=4, calls_per_exec=2),
-                 device="cpu")
+        Renderer(RenderConfig(samples=1, width=8, height=4, chips=2), device="cpu")
     ds = trace.device_scene_from_numpy(
         trace.prepare_scene(raytrace_tpu_torch.generate_random_scene(0.0)), "cpu")
     vp = trace.viewport_arrays(reference_camera(), 8, 4)
     base = dict(band_h=4, width=8, y0=0, seed_y0=0, offset_x=0, spp=1, number=0,
                 max_depth=2, backend="grid")
-    for extra in (dict(ablate=("fetch2",)), dict(grid_steps=(2, 40, False, 1)),
-                  dict(grid_steps=(2, 40)),
-                  dict(n_calls=2), dict(spp_last=1),
-                  dict(passign=np.zeros((1, 128), np.int32))):
+    for extra in (dict(ablate=("fetch2",)), dict(ablate=("iterstats", "cut_tea")),
+                  dict(grid_steps=(2, 40, False, 1)), dict(grid_steps=(2, 40))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trace.render_band(ds, vp, **base, **extra)
+    # the call merge, a table and the iterstats probe run on the grid backend
+    one = trace.render_band(ds, vp, **base)
+    two = trace.render_band(ds, vp, **dict(base, number=1), accum_init=one)
+    assert torch.equal(trace.render_band(ds, vp, **base, n_calls=2, spp_last=1), two)
+    table = np.full((1, 128), 32, np.int32)
+    table[0, :32] = np.arange(32)[::-1]
+    assert torch.equal(trace.render_band(ds, vp, **base, passign=table), one)
+    probe = trace.render_band(ds, vp, **base, ablate=("iterstats",))
+    assert torch.equal(probe[..., 1:], one[..., 1:]) and bool((probe[..., 0] >= 1).all())
+
+
+def test_ray_trace_balance_spp_runs():
+    """``balance_spp`` probes and renders through balanced tables: the image
+    of ``ray_trace`` is the unbalanced one."""
+    kw = dict(samples=2, width=24, height=14, max_depth=6, mode="fast", device="cpu")
+    assert np.array_equal(raytrace_tpu_torch.ray_trace(balance_spp=8, **kw),
+                          raytrace_tpu_torch.ray_trace(**kw))
+
+
+@pytest.mark.parametrize("spc", [1, 2])
+def test_calls_per_exec_equals_host_loop(spc):
+    """``calls_per_exec=3`` merges up to three progressive calls into one
+    dispatch (5 spp: 3 + 2 calls of 1 spp, or 2 + 1 calls of 2, 2 and 1
+    spp): the accumulator is the host loop's bit for bit, and ``on_chunk``
+    fires once per dispatch."""
+    cfg = RenderConfig(samples=5, width=24, height=14, max_depth=6, samples_per_call=spc,
+                       mode="fast")
+    ref, total = Renderer(cfg, device="cpu").render()
+    seen = []
+    r = Renderer(dataclasses.replace(cfg, calls_per_exec=3), device="cpu")
+    acc, total3 = r.render(on_chunk=lambda a, done: seen.append(done))
+    assert total == total3 == 5 and torch.equal(acc, ref)
+    assert seen == ([3, 5] if spc == 1 else [5])
+    # off the grid backend the calls run one by one
+    mega = dataclasses.replace(cfg, backend="mega")
+    mega_ref = Renderer(mega, device="cpu").render()[0]
+    seen.clear()
+    r = Renderer(dataclasses.replace(mega, calls_per_exec=3), device="cpu")
+    assert torch.equal(r.render(on_chunk=lambda a, done: seen.append(done))[0], mega_ref)
+    assert len(seen) == -(-5 // spc)
+
+
+def test_set_scene():
+    cfg = RenderConfig(samples=1, width=16, height=9, max_depth=4)
+    r = Renderer(cfg, device="cpu")
+    assert r.backend == "grid"
+    r.set_scene(three_sphere_scene())
+    assert r.backend == "mega"
+    fresh = Renderer(cfg, scene=three_sphere_scene(), device="cpu")
+    assert torch.equal(r.render_call(1), fresh.render_call(1))
+
+
+def _small(w=32, h=18, **kw):
+    cfg = RenderConfig(width=w, height=h, max_depth=6, backend="matmul", **kw)
+    return Renderer(cfg, scene=three_sphere_scene(), device="cpu")
+
+
+def test_checkpoint_roundtrip_and_resolution_mismatch(tmp_path):
+    r = _small()
+    accum = r.render_call(2)
+    p = str(tmp_path / "ckpt.npz")
+    r.save_state(p, accum, samples_done=2, number=1)
+    a2, done, num = r.load_state(p)
+    assert np.array_equal(a2, accum.numpy()) and done == 2 and num == 1
+    other = Renderer(RenderConfig(width=16, height=9, max_depth=6, backend="matmul"),
+                     scene=three_sphere_scene(), device="cpu")
+    with pytest.raises(ValueError):
+        other.load_state(p)
+
+
+def test_resumable_render_matches_uninterrupted(tmp_path):
+    p = str(tmp_path / "ck.npz")
+    full, _ = _small(samples_per_call=2).render_resumable(6)
+    r2 = _small(samples_per_call=2)
+    acc = r2.render_call(2, number=1, accum=r2.render_call(2, number=0))
+    r2.save_state(p, acc, 4, 2)
+    resumed, done = _small(samples_per_call=2).render_resumable(6, checkpoint_path=p)
+    assert done == 6 and torch.equal(resumed, full)
+
+
+def test_resumable_retries_then_gives_up(monkeypatch):
+    """A failing call is retried without losing the accumulated work, up to
+    ``max_retries`` times."""
+    calls = {"n": 0}
+    orig = Renderer.render_call
+
+    def flaky(self, spp, number=0, accum=None):
+        calls["n"] += 1
+        if calls["n"] == 2:  # fail once mid-render
+            raise RuntimeError("device fault")
+        return orig(self, spp, number=number, accum=accum)
+
+    monkeypatch.setattr(Renderer, "render_call", flaky)
+    accum, done = _small(samples_per_call=2).render_resumable(4)
+    assert done == 4 and calls["n"] == 3
+    monkeypatch.setattr(Renderer, "render_call", orig)
+    assert torch.equal(accum, _small(samples_per_call=2).render_resumable(4)[0])
+
+    def broken(self, spp, number=0, accum=None):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(Renderer, "render_call", broken)
+    with pytest.raises(RuntimeError):
+        _small(samples_per_call=2).render_resumable(4, max_retries=1)
+
+
+def test_benchmark_frame_loop(capsys):
+    dpf, frames = _small(8, 4, samples=1).benchmark(min_seconds=0.0, warmup=0)
+    assert dpf > 0 and frames >= 1
+    assert "duration_per_frame:" in capsys.readouterr().out
 
 
 def test_import_leaves_jax_out():

@@ -2,8 +2,8 @@
 """Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
 Run from the repository root: ``python3 torch_breakdown.py [--scene
-book|dense|gridless|pallas]``.  It needs one CUDA device and builds the
-port's kernels on first use.  ``--scene book`` (the default) times the book
+book|dense|gridless|pallas|headline|step] [--root DIR]``.  It needs one CUDA
+device and builds the port's kernels on first use.  ``--scene book`` (the default) times the book
 scene at 1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main
 path); ``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160
 and 8 spp on the paged kernel (``render_image``'s dense-scene path);
@@ -42,6 +42,19 @@ fused intersect kernel).  Each step is timed three times:
 
 It prints the card's name and power limit, one JSON object of the timings,
 then one of the profiler's device time.
+
+``--scene headline`` renders the JAX bench's operating point (the book scene
+at 1920x1080 x 10,000 spp in fast mode, 2500 spp per call) four ways, with
+the in-kernel call merge on (4 calls per dispatch) or off and balanced lanes
+on (a 32-spp probe) or off: the walls in turns (A B C D D C B A), then one
+instrumented render of each: its kernel time summed over launches, the
+launches, the tail share and the host loop; with ``--m M [M ...]`` instead
+the shipped way (merge and balance) at each of those pixels per lane.  ``--scene step`` times one
+launch of the production grid kernel at the smoke run's check state (the
+1080p x 16 spp exact state two launches in, on the driver's live lanes; CUDA
+events, median of ``STEP_REPS``) and prints one JSON line; with ``--root
+DIR`` it imports ``raytrace_tpu_torch`` from the checkout at DIR instead, so
+that two commits' kernels can be timed in turns, each in its own process.
 """
 
 from __future__ import annotations
@@ -70,6 +83,11 @@ K_SWEEP = {"dense": (10, 20, 40, 80), "gridless": (10, 20, 40), "book": (40, 80,
 J_SWEEP = {"2": 2, "4": 4, "close": 1 << 30}  # close: march until the segment closes
 M_SWEEP = (2, 4, 8)
 TAIL = 0.97  # a launch starting with fewer of the band's lanes alive is the tail
+HEADLINE = dict(samples=10_000, width=1920, height=1080, mode="fast", samples_per_call=2500)
+HEADLINE_WAYS = {"merge+balance": dict(calls_per_exec=4, balance_spp=32),
+                 "merge": dict(calls_per_exec=4), "balance": dict(balance_spp=32),
+                 "neither": {}}
+STEP_REPS = 21
 
 
 def wall(fn):
@@ -134,16 +152,119 @@ def instrumented(renderer, mod, name):
     return sec, ms, alive, glue_ms
 
 
+def tail_stats(ms, alive):
+    """(tail launches, their kernel ms, their share of the kernel time): the
+    launches that start with fewer than TAIL of the first launch's lanes."""
+    tail = [m for m, a in zip(ms, alive) if a < TAIL * alive[0]]
+    return len(tail), sum(tail), sum(tail) / sum(ms)
+
+
+def headline(res, ms_sweep=None):
+    """The JAX bench's operating point four ways: merge on/off x balance
+    on/off (or the shipped way at each M of ``ms_sweep``), walls in turns
+    and one instrumented render each."""
+    from raytrace_tpu_torch import RenderConfig
+    from raytrace_tpu_torch.ops import gridkernel
+    from raytrace_tpu_torch.runtime.renderer import Renderer
+
+    ways = HEADLINE_WAYS
+    if ms_sweep:
+        ways = {f"m{m}": dict(HEADLINE_WAYS["merge+balance"], pixels_per_lane=m)
+                for m in ms_sweep}
+    rs = {}
+    for name, kw in ways.items():
+        r = Renderer(RenderConfig(**HEADLINE, **kw), device="cuda")
+        res[f"{name}_warmup_s"] = wall(lambda: r.render_call(4))[1]  # runs the probe
+        if r.balance_stats:
+            res[f"{name}_balance"] = r.balance_stats
+        rs[name] = r
+    order = list(ways)
+    walls = {name: [] for name in order}
+    for name in order + order[::-1]:
+        walls[name].append(wall(rs[name].render)[1])
+    res["walls_in_turns_s"] = walls
+    for name, r in rs.items():
+        sec, ms, alive, glue_ms = instrumented(r, gridkernel, "grid_megakernel_step")
+        n_tail, tail_ms, share = tail_stats(ms, alive)
+        glue = sum(sum(v) for v in glue_ms.values())
+        res[name] = dict(instrumented_wall_s=sec, kernel_ms_sum=sum(ms), launches=len(ms),
+                         tail_launches=n_tail, tail_kernel_ms=tail_ms, tail_share=share,
+                         compaction_ms_sum=glue, host_ms=sec * 1e3 - sum(ms) - glue)
+    print(json.dumps(res), flush=True)
+
+
+def step(res):
+    """One launch of the production grid kernel at the smoke run's check
+    state, timed with CUDA events; only API that every version of the port
+    has, so that ``--root`` can point at an older checkout."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch.models.scene import generate_random_scene
+    from raytrace_tpu_torch.ops import gridkernel, trace
+    from raytrace_tpu_torch.runtime import renderer as rmod
+
+    dev = torch.device("cuda", 0)
+    spp, w, h = SCENES["book"][:3]
+    scene = generate_random_scene(0.0)
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(scene), dev)
+    cam = rmod.reference_camera()
+    m = int(np.clip(-(-(w * h) // rmod.lanes_target(dev, "grid")), 1, rmod.M_MAX))
+    f, u, scal, vpr, geom = trace.pack_state(
+        ds, trace.viewport_arrays(cam, w, h), backend="grid", band_h=h, width=w, y0=0,
+        seed_y0=0, offset_x=0, spp=spp, number=0, pixels_per_lane=m)
+    acc = trace.home_accum(None, geom["p_total"], dev)
+    kw = dict(geom, max_depth=50, skip_tmax=trace.tmax_never_binds(scene, cam), rr=None,
+              k_steps=gridkernel.K_STEPS, j_steps=gridkernel.J_STEPS)
+
+    def launch(f_, u_):
+        return gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f_, u_, acc, **kw)
+
+    def live(f_, u_):
+        return trace.gather_lanes(f_, u_, trace.live_lanes(u_[gridkernel.U_ALIVE]))
+
+    for _ in range(2):
+        f, u = launch(*live(f, u))
+    f, u = live(f, u)
+    launch(f, u)  # warm-up
+    ms = []
+    for _ in range(STEP_REPS):
+        a, b = _events()
+        a.record()
+        launch(f, u)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    res.update(m=m, live_lanes=f.shape[1], step_ms_median=statistics.median(ms), step_ms=ms)
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=sorted(SCENES), default="book")
-    scene_name = ap.parse_args().scene
+    ap.add_argument("--scene", choices=sorted(SCENES) + ["headline", "step"], default="book")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout to import raytrace_tpu_torch from (--scene step)")
+    ap.add_argument("--m", type=int, nargs="+",
+                    help="pixels per lane to sweep the shipped way at (--scene headline)")
+    args = ap.parse_args()
+    scene_name = args.scene
     if not torch.cuda.is_available():
         print("torch_breakdown: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
+    if scene_name in ("headline", "step"):
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+        res = {"device": torch.cuda.get_device_name(0), "scene": scene_name,
+               "root": os.path.abspath(args.root)}
+        if scene_name == "headline":
+            headline(res, args.m)
+        else:
+            step(res)
+        return 0
 
     import importlib
 
@@ -213,11 +334,9 @@ def main() -> int:
         res[f"{prefix}_kernel_ms_each"] = ms
         if alive:
             # the band's lanes: the first launch's (every lane starts alive)
-            tail = [m for m, a in zip(ms, alive) if a < TAIL * alive[0]]
             res[f"{prefix}_alive_lanes_in"] = alive
-            res[f"{prefix}_tail_launches"] = len(tail)
-            res[f"{prefix}_tail_kernel_ms"] = sum(tail)
-            res[f"{prefix}_tail_share"] = sum(tail) / sum(ms)
+            (res[f"{prefix}_tail_launches"], res[f"{prefix}_tail_kernel_ms"],
+             res[f"{prefix}_tail_share"]) = tail_stats(ms, alive)
         else:  # the spec loop: one kernel call per iteration
             res[f"{prefix}_host_ms_per_iteration"] = res[f"{prefix}_host_ms"] / len(ms)
             res[f"{prefix}_kernel_ms_per_iteration"] = sum(ms) / len(ms)
