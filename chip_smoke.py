@@ -61,20 +61,46 @@ one line and raises on failure, so any failure exits non-zero:
    samples x pixels per second, the balance statistics and the 1-spp frame
    loop ((t(65 merged 1-spp calls) - t(one call)) / 64, bench.py's
    measure).  Each kernel must have launched, and no plain version.
+6. bands and frames: first the grid and paged kernels against their plain
+   versions, as in phase 3, on the state of the first of four bands (the
+   book's 1920x270 band at M=1, the 100k field's 3840x540 band at M=8, each
+   in its whole image's viewport); then each path with the launch counts
+   set to 0 just before it and read just after it (its kernel must have
+   launched, and no plain version): ``MultiChipRenderer`` over four bands
+   of the one card (every band stepped from one thread as soon as its last
+   launch is done, each on a CUDA stream of its own) at 1920x1080 x 16 spp,
+   exact, on the
+   book scene (grid kernel) and the three-sphere scene (megakernel), 0 px
+   differing from ``Renderer.render_call``, both walls, each band's state
+   reckoned from its rows and lanes and the measured peak of device memory;
+   ``HeteroRenderer`` on the same four bands in global-seed mode:
+   ``render_frame(16)`` 0 px differing, ``per_dev``, the frame time, and
+   the rows after 5 ``tune_round``s (then 0 px again); the 100k-sphere field
+   at 3840x2160 x 8 spp, exact, over four bands sharing one copy of its
+   tables (paged kernel), 0 px differing; ``FrameLoop.run(frames=20)`` at
+   1920x1080 x 1 spp, animated, with the scene generation's and
+   ``set_scene``'s shares of its duration_per_frame; and
+   ``ProductionLoop(port=0)`` over the four bands for 3 frames at 1920x1080
+   x 16 spp, its ``/frame.png`` (PNG signature) and ``/state`` (rows summing
+   to 1080) read over HTTP from localhost.
 
-Before the last line it prints the kernels' JSON record (``launches`` are the
-main path's counts); the last line is ``{"ok": true, "device": {...}}``.
+Every time is printed beside the card's name and power limit.  Before the
+last line it prints the kernels' JSON record (``launches`` are the counts
+of phases 5 and 6); the last line is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "smoke")
@@ -83,6 +109,10 @@ MAIN_SPP, MAIN_W, MAIN_H = 16, 1920, 1080
 HEAD_SPP, HEAD_SPP_PER_CALL, HEAD_CALLS_PER_EXEC, HEAD_BALANCE_SPP = 10_000, 2500, 4, 32
 FRAME_LOOP_CALLS = 65
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
+N_BANDS, TUNE_ROUNDS, LOOP_FRAMES, PROD_FRAMES = 4, 5, 20, 3
+# past this many seconds every thread's stack is printed and the run exits 1,
+# inside the 1200 s a run may take
+WATCHDOG_S = 1150
 # H100 SXM peaks (NVIDIA data sheet): device memory and fp32 outside the
 # tensor cores
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
@@ -139,9 +169,198 @@ def compare(kern, plain):
     return int(bad.sum()), err
 
 
+def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
+    """Phase 6: row bands over four bands of the one card, the tuned bands,
+    the animated frame loop and the production loop behind its HTTP server.
+    Each path runs with the launch counts set to 0 just before it; returns
+    the kernels' launches summed over the paths."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch import RenderConfig
+    from raytrace_tpu_torch.models.scene import (random_sphere_field,
+                                                 three_sphere_scene)
+    from raytrace_tpu_torch.ops import trace
+    from raytrace_tpu_torch.parallel.hetero import HeteroRenderer
+    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
+    from raytrace_tpu_torch.runtime import frames as frames_mod
+    from raytrace_tpu_torch.runtime import renderer as rmod
+    from raytrace_tpu_torch.runtime.production import ProductionLoop
+
+    card = f"({smi})"
+    four = [dev] * N_BANDS
+    totals = dict.fromkeys(launches(), 0)
+
+    def path(label, kernel, fn):
+        """Run ``fn()`` with every count at 0; its kernel must launch and no
+        plain version."""
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        ran = launches()
+        phase("bands", f"{label}: launches {({k: v for k, v in ran.items() if v})}")
+        if ran[kernel] == 0 or any(ran[p] for p in plain_names):
+            raise RuntimeError(f"{label}: {kernel} launched {ran[kernel]} times, plain "
+                               f"versions {({p: ran[p] for p in plain_names})}")
+        for k, v in ran.items():
+            totals[k] += v
+        return out
+
+    def wall(fn, reps=3):
+        """(result, median seconds of ``reps`` synchronised calls after a
+        warm-up call)."""
+        out = [fn()]
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[0] = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out[0], statistics.median(times)
+
+    def state_mb(r, dsc, backend, rows):
+        """A band's wavefront state (f32 and int32 rows x padded lanes) and
+        home-order accumulator, reckoned from its rows, in MB."""
+        m, chunk = rmod.band_layout(r.config, dev, backend, rows)
+        mk, rf = trace._state_module(dsc, backend, m)
+        p = r.config.width * chunk
+        n_pad = -(-(-(-p // m)) // trace.LANE_PAD) * trace.LANE_PAD
+        return m, n_pad, ((rf + mk.U_ROWS) * 4 * n_pad + 12 * p) / 1e6
+
+    def bands_vs_whole(label, kernel, backend, cfg, scene, spp):
+        single = rmod.Renderer(cfg, scene=scene, device=dev)
+        whole, t_whole = wall(lambda: single.render_call(spp))
+        r = MultiChipRenderer(cfg, scene=scene, devices=four)
+        torch.cuda.reset_peak_memory_stats(dev)
+        banded, t_bands = path(f"{label} over {N_BANDS} bands", kernel,
+                               lambda: wall(lambda: r.render_call(spp)))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e6
+        n_diff = int((banded != whole).any(dim=2).sum())
+        m, n_pad, mb = state_mb(r, r.device_scenes[dev], r.backend, r.band_h)
+        tables = sum(t.numel() * t.element_size() for t in r.device_scenes[dev].paged or ()
+                     if torch.is_tensor(t)) / 1e6
+        phase("bands", f"{label} {cfg.width}x{cfg.height} x {spp} spp, backend {r.backend}: "
+              f"{N_BANDS} bands of {r.band_h} rows {n_diff} px differ from the whole; wall "
+              f"whole {t_whole * 1e3:.3f} ms, {N_BANDS} bands {t_bands * 1e3:.3f} ms "
+              f"(median of 3 after a warm-up); each band's state {mb:.1f} MB (M={m}, "
+              f"{n_pad} lanes), {N_BANDS * mb:.1f} MB for the {N_BANDS}; "
+              f"{len(r.device_scenes)} copy of the tables"
+              f"{f' ({tables:.1f} MB of paged tables)' if tables else ''}; device memory "
+              f"peak {peak:.1f} MB over the banded renders {card}")
+        if n_diff or r.backend != backend:
+            raise RuntimeError(f"{label}: the {N_BANDS} bands differ from the whole on "
+                               f"{n_diff} px (backend {r.backend})")
+        return whole
+
+    # the book scene and the three-sphere scene over four bands
+    book_cfg = RenderConfig(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H)
+    whole = bands_vs_whole("book scene", "grid_megakernel_step", "grid", book_cfg,
+                           None, MAIN_SPP)
+    bands_vs_whole("three-sphere scene", "megakernel_step", "mega", book_cfg,
+                   three_sphere_scene(), MAIN_SPP)
+
+    # the same four bands tuned, global seeds: every frame is the whole's
+    def hetero():
+        hr = HeteroRenderer(book_cfg, devices=four, reference_banding=False)
+        accum, frame_s, per_dev = hr.render_frame(MAIN_SPP)
+        n_diff = int((accum != whole.cpu().numpy()).any(axis=2).sum())
+        dpfs = [hr.tune_round(MAIN_SPP, frames=1)[1] for _ in range(TUNE_ROUNDS)]
+        after = int((hr.render_frame(MAIN_SPP)[0] != whole.cpu().numpy()).any(axis=2).sum())
+        phase("bands", f"hetero book scene {MAIN_W}x{MAIN_H} x {MAIN_SPP} spp over "
+              f"{N_BANDS} bands: {n_diff} px differ from the whole; frame "
+              f"{frame_s * 1e3:.3f} ms, per_dev {[round(p * 1e3, 3) for p in per_dev]} ms; "
+              f"after {TUNE_ROUNDS} tune_rounds (duration_per_frame "
+              f"{[round(d * 1e3, 3) for d in dpfs]} ms) rows {hr.rows}, {after} px differ "
+              f"{card}")
+        if n_diff or after or sum(hr.rows) != MAIN_H:
+            raise RuntimeError(f"hetero: {n_diff} / {after} px differ, rows {hr.rows}")
+
+    path("hetero book scene", "grid_megakernel_step", hetero)
+
+    # the 100k-sphere field over four bands sharing one copy of its tables
+    bands_vs_whole(f"{DENSE_N}-sphere field", "paged_megakernel_step", "paged",
+                   RenderConfig(samples=DENSE_SPP, width=DENSE_W, height=DENSE_H),
+                   random_sphere_field(DENSE_N), DENSE_SPP)
+
+    # the animated frame loop: scene generation and set_scene timed per frame
+    def frame_loop():
+        fl = frames_mod.FrameLoop(RenderConfig(samples=1, width=MAIN_W, height=MAIN_H),
+                                  device=dev)
+        spent = {"scene": [], "set_scene": []}
+
+        def timed(fn, key):
+            def wrapped(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                spent[key].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        orig_gen = frames_mod.generate_random_scene
+        frames_mod.generate_random_scene = timed(orig_gen, "scene")
+        fl.renderer.set_scene = timed(fl.renderer.set_scene, "set_scene")
+        try:
+            dpf, n = fl.run(frames=LOOP_FRAMES)
+        finally:
+            frames_mod.generate_random_scene = orig_gen
+        gen, ss = (sum(spent[k][-n:]) / n for k in ("scene", "set_scene"))
+        phase("frames", f"FrameLoop {MAIN_W}x{MAIN_H} x 1 spp animated, {n} frames: "
+              f"duration_per_frame {dpf * 1e3:.3f} ms, of it scene generation "
+              f"{gen * 1e3:.3f} ms ({gen / dpf:.1%}) and set_scene {ss * 1e3:.3f} ms "
+              f"({ss / dpf:.1%}), backend {fl.renderer.backend} {card}")
+        if n != LOOP_FRAMES or not dpf > 0:
+            raise RuntimeError(f"frame loop: {n} frames, dpf {dpf}")
+
+    path("frame loop", "grid_megakernel_step", frame_loop)
+
+    # the production loop behind its HTTP server on localhost
+    def production():
+        loop = ProductionLoop(RenderConfig(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H),
+                              port=0, devices=four, device=dev)
+        port = loop.start_server()
+        try:
+            errors = []
+
+            def run():
+                try:
+                    loop.render_loop(max_frames=PROD_FRAMES)
+                except BaseException as e:  # raised below, on the main thread
+                    errors.append(e)
+
+            th = threading.Thread(target=run, daemon=True)
+            t0 = time.perf_counter()
+            th.start()
+            th.join(timeout=300)
+            sec = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            if th.is_alive():
+                raise RuntimeError("production loop: no end within 300 s")
+
+            def get(p):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{p}", timeout=30) as res:
+                    return res.read()
+
+            png, state = get("/frame.png"), json.loads(get("/state"))
+        finally:
+            loop.stop()
+        phase("frames", f"ProductionLoop {MAIN_W}x{MAIN_H} x {MAIN_SPP} spp over {N_BANDS} "
+              f"bands, {PROD_FRAMES} frames in {sec:.3f} s: /frame.png {len(png)} B, "
+              f"/state {state} {card}")
+        if (png[:8] != b"\x89PNG\r\n\x1a\n" or sum(state["rows"]) != MAIN_H
+                or state["frame"] != PROD_FRAMES - 1 or not state["duration_per_frame"] > 0):
+            raise RuntimeError(f"production loop: png {png[:8]!r}, state {state}")
+
+    path("production loop", "grid_megakernel_step", production)
+    return totals
+
+
 def main() -> int:
     import torch
 
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -206,10 +425,11 @@ def main() -> int:
         """The renderer's M for (w, h) on this card."""
         return int(np.clip(-(-(w * h) // rmod.lanes_target(dev, backend)), 1, rmod.M_MAX))
 
-    def step_state(backend, dsc, w, h, spp, **pack):
-        """A band state at (w, h)'s lane count (the renderer's M)."""
+    def step_state(backend, dsc, w, h, spp, full_h=None, **pack):
+        """A band state at (w, h)'s lane count (the renderer's M): the top
+        band of an image ``full_h`` rows high (default: the whole image)."""
         m = lanes_m(backend, w, h)
-        vp = trace.viewport_arrays(cam, w, h)
+        vp = trace.viewport_arrays(cam, w, full_h or h)
         return m, trace.pack_state(
             dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
             offset_x=0, spp=spp, number=0, pixels_per_lane=m, **pack)
@@ -224,7 +444,7 @@ def main() -> int:
 
     def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
                    tables, label="", accum=False, compact=None, check=None,
-                   pack=None, strict=False):
+                   pack=None, strict=False, full_h=None):
         """Pack a band state at (w, h)'s lane count, take it two launches
         in, then one kernel launch and one plain call from there in exact and
         fast mode; time both in exact mode.  ``call(k, scal, vpr, f, u, g,
@@ -234,9 +454,11 @@ def main() -> int:
         taken before every launch; ``check(out)``: (count, what) of a further
         disagreement in the kernel's output; ``pack``: further arguments of
         ``pack_state``; ``strict``: every lane must be bit-equal (else
-        99.9%).  Returns (exact-mode input, max |diff|, ms, plain ms, bound
+        99.9%); ``full_h``: the state is the top band of an image that
+        high.  Returns (exact-mode input, max |diff|, ms, plain ms, bound
         ms, bound by)."""
-        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, **(pack or {}))
+        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, full_h,
+                                                  **(pack or {}))
         live = compact or (lambda out: out[:2])
         max_err, res = 0.0, None
         for mode, rr in (("exact", None), ("fast", RenderConfig(mode="fast").rr)):
@@ -687,10 +909,36 @@ def main() -> int:
     phase("main", f"launches over the main path {main_counts}")
     if any(main_counts[p] for p in plain_names):
         raise RuntimeError("a plain version ran on the main path")
+
+    # ---- 6. bands and frames -------------------------------------------------
+    # the grid and paged kernels against their plain versions on the state of
+    # the first of the four bands, at the shapes the bands give them: the
+    # book's 270-row band (M=1) and the 100k field's 540-row band (M=8)
+    band_checks = (
+        ("grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+         gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+         grid_call(), grid_tables, dict(compact=grid_live, strict=True)),
+        ("paged_megakernel_step", "paged", dds, DENSE_W, DENSE_H, DENSE_SPP, dense_skip,
+         pagedkernel.paged_megakernel_step, pagedkernel.paged_megakernel_step_plain,
+         paged_call, [dds.paged.geom, dds.paged.lids, dds.paged.attrs, dds.paged.gtab, gs],
+         dict(compact=paged_live, check=key_check)))
+    for name, backend, dsc, w, h, spp, sk, kern, plain, call, tables, kw in band_checks:
+        band_h = h // N_BANDS
+        m_band, chunk = rmod.band_layout(RenderConfig(width=w, height=h), dev, backend,
+                                         band_h)
+        if chunk != band_h or m_band != lanes_m(backend, w, band_h):
+            raise RuntimeError(f"{name}: a {band_h}-row band renders in chunks of {chunk} "
+                               f"rows at M={m_band}, not the state checked here")
+        _, b_err, b_ms, b_plain_ms, *_ = check_step(
+            name, backend, dsc, w, band_h, spp, sk, kern, plain, call, tables,
+            label=f" (first of {N_BANDS} bands of {w}x{h})", accum=True, full_h=h, **kw)
+        records[name].update(max_abs_err=max(records[name]["max_abs_err"], b_err),
+                             band_ms=b_ms, band_plain_ms=b_plain_ms)
+    band_counts = bands_and_frames(dev, smi, launches, counters, plain_names)
     for name in records:
-        if main_counts[name] == 0:
+        if main_counts[name] + band_counts[name] == 0:
             raise RuntimeError(f"{name} did not launch on the main path")
-        records[name]["launches"] = main_counts[name]
+        records[name]["launches"] = main_counts[name] + band_counts[name]
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

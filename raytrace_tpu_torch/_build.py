@@ -10,7 +10,12 @@ first call in a fresh checkout builds it, later calls load it.  Flags:
 must keep the JAX package's IEEE op sequence (see ``csrc/wavefront.cuh``).
 
 Nothing here runs at import: ``library()`` builds on first use and raises if
-nvcc is missing or the build fails.  There is no fallback.
+nvcc is missing or the build fails.  There is no fallback.  It holds a lock,
+so threads that launch at once start one build.
+
+``tuner_library()`` builds the JAX package's native workload tuner
+(``native/tuner.cpp``, read in place) with g++ into
+``build/tuner/<hash>/`` the same way, for ``runtime/tuner.py``.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+REPO = Path(__file__).resolve().parent.parent
+BUILD_ROOT = REPO / "build" / "kernels"
 SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu")
 HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
@@ -131,9 +138,18 @@ def forbidden_ptx(ptx_paths) -> dict:
     return found
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; one build and one load
+    however many threads ask at once)."""
+    with _LOAD_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["lib"]))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -160,3 +176,32 @@ def occupancy(kernel: str, *args: int) -> dict:
         raise RuntimeError(f"{kernel} occupancy query failed: {error_string(err)}")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
                 static_shared_bytes=out[3])
+
+
+TUNER_SOURCE = REPO / "native" / "tuner.cpp"
+TUNER_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off")
+TUNER_LIB = "libraytrace_tuner.so"
+
+
+def tuner_library() -> Path:
+    """Path of the native workload tuner, built from ``native/tuner.cpp``
+    with g++ into ``build/tuner/<hash of source and flags>/`` if missing.
+    Raises if g++ is missing or the build fails."""
+    h = hashlib.sha256(TUNER_SOURCE.read_bytes())
+    h.update(" ".join(TUNER_FLAGS).encode())
+    out = REPO / "build" / "tuner" / h.hexdigest()[:16]
+    lib = out / TUNER_LIB
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native tuner cannot be built")
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        tmp_lib = Path(tmp) / TUNER_LIB
+        res = subprocess.run([gxx, *TUNER_FLAGS, "-o", str(tmp_lib), str(TUNER_SOURCE)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed ({res.returncode}) on {TUNER_SOURCE}:\n{res.stdout}")
+        os.replace(tmp_lib, lib)
+    return lib

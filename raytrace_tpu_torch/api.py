@@ -6,14 +6,17 @@ order with the same defaults, prints ``duration_per_frame`` like the
 reference frame loop, and writes a PNG when asked.  ``render_image`` renders
 any scene (``random_sphere_field(100_000)`` is the dense-scene path).  Both
 render on the GPU (``device="cuda"``) and raise without one; ``device="cpu"``
-runs the kernels' plain torch versions.
+runs the kernels' plain torch versions.  With ``chips`` / ``gpu_count`` above
+1 they split row bands over the devices there are (``parallel/sharding.py``;
+one H100 gives one band, as JAX truncates its mesh), or over an explicit
+``devices`` list.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -22,9 +25,16 @@ from .models.scene import SceneArrays
 
 
 def render_image(config: RenderConfig, scene: Optional[SceneArrays] = None,
-                 device="cuda") -> np.ndarray:
+                 device="cuda", devices: Optional[Sequence] = None) -> np.ndarray:
     """Render one frame of ``scene`` (default: the book scene) to a u8 RGB
-    image using ``config``."""
+    image using ``config``: in row bands over ``devices`` (default:
+    ``config.chips`` devices of ``device``'s type) when ``config.chips > 1``
+    or ``devices`` is given, else on ``device``."""
+    if config.chips > 1 or devices is not None:
+        from .parallel.sharding import MultiChipRenderer
+
+        return MultiChipRenderer(config, scene=scene, devices=devices,
+                                 device=device).render_u8()
     from .runtime.renderer import Renderer
 
     return Renderer(config, scene=scene, device=device).render_u8()
@@ -52,8 +62,9 @@ def ray_trace(
     """Drop-in analogue of the reference C ABI entry point.
 
     Renders the procedural final-book scene at (width, height) with
-    ``samples`` spp, prints duration_per_frame, optionally stores a PNG, and
-    returns the u8 image.  ``preview`` writes the running image after every
+    ``samples`` spp across ``gpu_count`` devices (``render_image``), prints
+    duration_per_frame, optionally stores a PNG, and returns the u8 image.
+    ``preview`` (one device) writes the running image after every
     progressive call.  ``device``: "cuda" (default; raises without a GPU) or
     "cpu"."""
     config = RenderConfig(
@@ -77,16 +88,17 @@ def ray_trace(
     from .utils.png import write_png
 
     t0 = time.perf_counter()
-    if preview:
+    if preview and gpu_count == 1:
         if config.samples_per_call is None:
             config = dataclasses.replace(config, samples_per_call=max(1, samples // 10))
 
         def on_chunk(accum, done):
             write_png(out_path, accum_to_u8(accum, done).cpu().numpy())
+
+        accum, total = Renderer(config, device=device).render(samples, on_chunk=on_chunk)
+        img = accum_to_u8(accum, total).cpu().numpy()
     else:
-        on_chunk = None
-    accum, total = Renderer(config, device=device).render(samples, on_chunk=on_chunk)
-    img = accum_to_u8(accum, total).cpu().numpy()
+        img = render_image(config, device=device)
     dpf = time.perf_counter() - t0
     print(f"duration_per_frame: {dpf}")
     if store_render_result:

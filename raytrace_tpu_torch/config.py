@@ -3,9 +3,8 @@
 Port copy of ``raytrace_tpu/config.py`` (pure Python): ``RenderCallInfo``
 mirrors the reference's ``render_call_info.h``; ``RenderConfig`` collects the
 CLI-level settings plus the renderer's knobs (sample chunking, backend,
-accumulator dtype, exact/fast mode, call merge, balanced lanes).  ``chips >
-1`` is kept so the signature matches the JAX package; the renderer refuses
-it by name until the port has row bands over several devices.
+accumulator dtype, exact/fast mode, call merge, balanced lanes, the device
+count that ``api.render_image`` splits row bands over).
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ class RenderConfig:
     store: bool = False  # --store, main.cpp:14 (PNG out; reference never writes, Q2)
     width: int = 1920  # --width
     height: int = 1080  # --height
-    chips: int = 1  # devices to split row bands over (only 1 in the port so far)
+    chips: int = 1  # devices to split row bands over (parallel/sharding.py)
     max_depth: int = MAX_DEPTH
     samples_per_call: Optional[int] = None  # None = all in one call (reference Q3)
     calls_per_exec: int = 1  # progressive calls merged into one dispatch (grid)

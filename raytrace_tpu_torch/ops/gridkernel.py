@@ -72,6 +72,7 @@ from ..models.grid import (G_CMAXX, G_CMAXZ, G_CMINX, G_CMINZ, G_CY, G_INVS,
                            G_NCZ, G_S, G_XHI, G_XLO, G_YHI, G_YLO, G_ZHI,
                            G_ZLO)
 from . import fp
+from . import launches
 from . import rng as rngops
 from .intersect import BIG
 from .megakernel import (S_NCALLS, S_NUMBER, S_OFFX, S_SEEDY0, S_SPP,
@@ -225,7 +226,7 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"grid kernel launch failed: {_build.error_string(err)}")
-    grid_megakernel_step.launches += 1
+    launches.count(grid_megakernel_step)
     return fout, uout
 
 
@@ -242,7 +243,7 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     CUDA kernel, on the same CellTables; ``acc`` is updated in place.
     ``work``: optional dict that receives the counts of
     ``megakernel.count_work``."""
-    grid_megakernel_step_plain.launches += 1
+    launches.count(grid_megakernel_step_plain)
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()

@@ -25,6 +25,7 @@ import torch
 
 from .. import config
 from . import fp
+from . import launches
 from . import rng as rngops
 from .intersect import BIG
 from .shading_rows import norm3, shade_rows
@@ -167,7 +168,7 @@ def megakernel_step(scal, vpr, table, atab, fstate, ustate, *, m_slots,
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: {_build.error_string(err)}")
-    megakernel_step.launches += 1
+    launches.count(megakernel_step)
     return fout, uout
 
 
@@ -191,7 +192,7 @@ def megakernel_step_plain(scal, vpr, table, atab, fstate, ustate, *, m_slots,
     vectorized over lanes, with the same operand order as the CUDA kernel,
     over the first ``n_valid`` table rows (None: all).  ``work``: optional
     dict that receives the counts of ``count_work``."""
-    megakernel_step_plain.launches += 1
+    launches.count(megakernel_step_plain)
     if n_valid is not None:
         rows = max(n_valid, 1)  # row 0 of an empty scene is padding: a miss
         table, atab = table[:rows], atab[:, :rows]

@@ -49,6 +49,7 @@ import torch
 from ..models.paged_grid import (P_CY, P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ,
                                  P_INVS, P_NSCZM, P_S, P_XHI, P_XLO, P_YHI,
                                  P_YLO, P_ZHI, P_ZLO)
+from . import launches
 from . import rng as rngops
 from .gridkernel import _quadratic, _slab_inv
 from .intersect import BIG
@@ -159,7 +160,7 @@ def paged_megakernel_step(scal, vpr, paged, fstate, ustate, acc, *, m_slots,
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged kernel launch failed: {_build.error_string(err)}")
-    paged_megakernel_step.launches += 1
+    launches.count(paged_megakernel_step)
     return fout, uout, key
 
 
@@ -178,7 +179,7 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
     ``megakernel.count_work``."""
     from .trace import _rebucket_key
 
-    paged_megakernel_step_plain.launches += 1
+    launches.count(paged_megakernel_step_plain)
     five, textured, n_slots, w, na, ab = layout(paged)
     dev = fstate.device
     f = fstate.clone()

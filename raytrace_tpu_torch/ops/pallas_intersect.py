@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import fp
+from . import launches
 from .intersect import (_C_ATTR0, _C_CX, _C_CY, _C_CZ, _C_KC, _C_VALID, A_ATTR,
                         A_C0, A_C1, A_CX, A_CY, A_CZ, A_MAT, A_TEX, BIG,
                         sphere_table)
@@ -83,7 +84,7 @@ def intersect_shade_pallas(o, d, table, n_valid=None):
         if err:
             raise RuntimeError(
                 f"intersect kernel launch failed: {_build.error_string(err)}")
-        intersect_shade_pallas.launches += 1
+        launches.count(intersect_shade_pallas)
     return t, t < float(BIG), attrs
 
 
@@ -95,7 +96,7 @@ def intersect_shade_pallas_plain(o, d, table, n_valid=None):
     kernel's [S, N] expression order, the rows past the first ``n_valid``
     (None: none) taken as invalid, ``argmin`` (lowest index among the
     minima) and an indexed load of the winner's attribute columns."""
-    intersect_shade_pallas_plain.launches += 1
+    launches.count(intersect_shade_pallas_plain)
     scanned = torch.arange(table.shape[0], device=table.device)[:, None] < _rows(table, n_valid)
     ox, oy, oz = (o[:, i][None, :] for i in range(3))  # [1, N]
     dx, dy, dz = (d[:, i][None, :] for i in range(3))

@@ -273,7 +273,36 @@ def _check_options(backend, ablate, grid_steps, n_calls, spp_last, passign):
         raise ValueError(f"unknown backend: {backend!r}")
 
 
-def render_band(
+def render_band(scene: DeviceScene, vp: ViewportArrays, **kw):
+    """Render one row band; returns the accumulated color sum [band_h, W, 3]
+    (f32, on the scene's device).  The keywords are ``render_band_steps``'s;
+    this runs its steps to the end."""
+    return run_steps(render_band_steps(scene, vp, **kw))
+
+
+def run_steps(steps):
+    """Run a generator of steps (``render_band_steps``) to its end; returns
+    its return value."""
+    try:
+        while True:
+            next(steps)
+    except StopIteration as stop:
+        return stop.value
+
+
+def issued(device: torch.device):
+    """What a step of ``render_band_steps`` yields once its launch is issued:
+    on a CUDA device an event recorded after it on the current stream, which
+    a caller polls before it steps the band again; None on the CPU, where
+    the step's work is done when it returns."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def render_band_steps(
     scene: DeviceScene,
     vp: ViewportArrays,
     *,
@@ -297,8 +326,13 @@ def render_band(
     passign=None,
     return_iters: bool = False,
 ):
-    """Render one row band; returns the accumulated color sum [band_h, W, 3]
-    (f32, on the scene's device).
+    """Render one row band, as a generator of steps: it yields ``issued``'s
+    event once each launch (or spec-loop iteration) is issued, before the
+    host waits for its result, and returns the accumulated color sum
+    [band_h, W, 3] (f32, on the scene's device).  A caller that polls those
+    events steps each of several bands as soon as its last launch is done,
+    all from one host thread (``parallel/devices.py``); ``render_band``
+    runs one to its end.
 
     shader.rgen main() semantics: per-pixel seed ``tea(tea(x, y), number)``,
     ``spp`` sequential jittered samples, the iterative <= ``max_depth``
@@ -322,13 +356,14 @@ def render_band(
               max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
     iters = [0, 0]
     if backend == "paged":
-        acc = _render_band_paged(scene, vp, skip_tmax=skip_tmax, iters=iters, **kw)
+        acc = yield from _render_band_paged(scene, vp, skip_tmax=skip_tmax, iters=iters, **kw)
     elif backend in KERNEL_BACKENDS:
-        acc = _render_band_mega(scene, vp, skip_tmax=skip_tmax, backend=backend,
-                                n_calls=n_calls, spp_last=spp_last, passign=passign,
-                                iterstats="iterstats" in ablate, iters=iters, **kw)
+        acc = yield from _render_band_mega(
+            scene, vp, skip_tmax=skip_tmax, backend=backend, n_calls=n_calls,
+            spp_last=spp_last, passign=passign, iterstats="iterstats" in ablate,
+            iters=iters, **kw)
     else:
-        acc = _render_band_spec(scene, vp, backend=backend, iters=iters, **kw)
+        acc = yield from _render_band_spec(scene, vp, backend=backend, iters=iters, **kw)
     return (acc, tuple(iters)) if return_iters else acc
 
 
@@ -477,6 +512,7 @@ def _render_band_spec(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                         torch.where(regen[:, None], d_r, d))
         thr = torch.where(cont[:, None], nthr, torch.where(regen[:, None], 1.0, thr))
         alive = alive & (cont | regen)
+        yield issued(dev)
 
     acc = acc.permute(1, 0, 2).reshape(n * m_slots, 3)[:p_total]
     return acc.reshape(band_h, width, 3)
@@ -645,6 +681,7 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                 _count_iters(iters, k, live.numel())
             fstate, ustate = gridkernel.grid_megakernel_step(
                 scal, vpr, scene.grid, fstate, ustate, acc, **common)
+            yield issued(dev)
         return acc.reshape(band_h, width, 3)
 
     atab = scene.table[:, 8:24].T.contiguous()
@@ -657,6 +694,7 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
             _count_iters(iters, megakernel.K_STEPS, ustate.shape[1])
         fstate, ustate = megakernel.megakernel_step(
             scal, vpr, scene.table, atab, fstate, ustate, n_valid=n_valid, **common)
+        yield issued(dev)
     return unpack_accum(fstate, band_h=band_h, **geom)
 
 
@@ -781,4 +819,5 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
             _count_iters(iters, k, perm.numel())
         fstate, ustate, key = pagedkernel.paged_megakernel_step(
             scal, vpr, g, fstate, ustate, acc, **common)
+        yield issued(fstate.device)
     return acc.reshape(band_h, width, 3)

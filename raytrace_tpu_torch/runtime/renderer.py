@@ -94,31 +94,38 @@ def lanes_target(device: torch.device, backend: str = "mega") -> int:
     return CPU_LANES_TARGET
 
 
+def band_layout(config: RenderConfig, device: torch.device, backend: str,
+                rows: int):
+    """(pixels_per_lane, chunk_rows) of a band of ``rows`` image rows: the
+    config's M, else the fewest pixels per lane that keep the lane count
+    within the device's lane target for the backend (output is identical for
+    any M), and the rows per ``render_band`` call that keep the lanes within
+    the backend's ``_TARGET_LANES``."""
+    w = config.width
+    if config.pixels_per_lane is not None:
+        m = config.pixels_per_lane
+    else:
+        m = int(np.clip(-(-(w * rows) // lanes_target(device, backend)), 1, M_MAX))
+    target = _TARGET_LANES.get(backend, 1 << 14)
+    return m, max(1, min(rows, (target * m) // max(w, 1)))
+
+
 class Renderer:
-    """Renders full frames on one device (one ``render_band`` per band)."""
+    """Renders full frames on one device (one ``render_band`` per band).
+    ``config.chips`` is not read: like the JAX ``Renderer``, this one renders
+    on its one device (``parallel/`` splits rows over several)."""
 
     def __init__(self, config: RenderConfig, scene: Optional[SceneArrays] = None,
                  device="cuda"):
-        if config.chips > 1:
-            raise NotImplementedError(
-                "chips > 1: row bands over several devices (ROADMAP queue 1, item 2)")
         if config.accum_dtype not in ("float32", "float64"):
             raise ValueError(f"unsupported accum_dtype: {config.accum_dtype!r}")
         self.config = config
         self.device = render_device(device)
         self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
         self.set_scene(self.scene)
-        w, h = config.width, config.height
-        if config.pixels_per_lane is not None:
-            self.pixels_per_lane = config.pixels_per_lane
-        else:
-            # fewest pixels per lane that keeps the lane count within the
-            # backend's lane target (output is identical for any M)
-            target = lanes_target(self.device, self.backend)
-            self.pixels_per_lane = int(np.clip(-(-(w * h) // target), 1, M_MAX))
-        target = _TARGET_LANES.get(self.backend, 1 << 14)
-        self.chunk_rows = max(1, min(h, (target * self.pixels_per_lane) // max(w, 1)))
-        self.vp = viewport_arrays(config_camera(config), w, h)
+        self.pixels_per_lane, self.chunk_rows = band_layout(
+            config, self.device, self.backend, config.height)
+        self.vp = viewport_arrays(config_camera(config), config.width, config.height)
         # balanced pixel->lane tables per band (runtime/balance.py), built on
         # demand when config.balance_spp > 0, or by enable_balance
         self._passign = None

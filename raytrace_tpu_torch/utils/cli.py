@@ -5,9 +5,11 @@ defaults, the same ``unknown argument: X`` stderr line for an unknown flag,
 the same exit codes (0, or 1 with one stderr line on an error), and the
 same keyword arguments for ``api.ray_trace``.  ``main(argv, device)`` takes
 the device as a Python argument ("cuda" by default; "cpu" runs the kernels'
-plain torch versions).  The flags whose modules the port does not have yet
-(``--frames``, ``--serve``, ``--autotune``, ``--full``) exit 1 with a line
-naming their ROADMAP item, as does ``--gpus`` above 1 through the renderer.
+plain torch versions).  ``--gpus N`` splits row bands over up to N devices
+(one GPU gives one band); ``--serve`` runs the live viewer, or with
+``--gpus`` above 1 or ``--frames`` the production loop; ``--frames`` alone
+runs the animated frame loop.  ``--autotune`` and ``--full``, whose module
+the port does not have yet, exit 1 with a line naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -136,8 +138,6 @@ def parse_args(argv):
 
 # flags of modules still to port -> their ROADMAP item (queue 1)
 _NOT_PORTED = {
-    "_frames": "--frames: the animated frame loop (ROADMAP queue 1, item 3)",
-    "_serve": "--serve: the live viewer and production loop (ROADMAP queue 1, item 3)",
     "_autotune": "--autotune: the kernel autotuner (ROADMAP queue 1, item 4)",
     "_autotune_full": "--full: the kernel autotuner (ROADMAP queue 1, item 4)",
 }
@@ -152,12 +152,39 @@ def main(argv=None, device="cuda"):
         return 1
     if kw is None:
         return 0
+    frames = kw.pop("_frames", None)
     checkpoint = kw.pop("_checkpoint", None)
+    serve = kw.pop("_serve", None)
     try:
         for key, what in _NOT_PORTED.items():
             if kw.pop(key, None) is not None:
                 raise NotImplementedError(what)
-        if checkpoint is not None:
+        if serve is not None:
+            # live viewer and camera input (the headless analogue of the
+            # reference's per-GPU windows, window.hpp:29-54)
+            from ..config import RenderConfig
+
+            cfg = RenderConfig(
+                samples=kw["samples"], width=kw["width"], height=kw["height"],
+                chips=kw["gpu_count"],
+                max_depth=kw.get("max_depth", 50),
+                backend=kw.get("backend", "auto"),
+                samples_per_call=kw.get("samples_per_call"),
+                mode=kw.get("mode", "exact"),
+                scene_time=kw.get("scene_time", 0.0),
+            )
+            if kw["gpu_count"] > 1 or frames is not None:
+                # the reference's operating mode: animated scene, per-device
+                # bands and tuner re-splits in one loop (ray_trace.cpp:579-776)
+                from ..runtime.production import ProductionLoop
+
+                ProductionLoop(cfg, port=serve, device=device).run(
+                    max_frames=frames if frames else None)
+            else:
+                from ..runtime.viewer import LiveViewer
+
+                LiveViewer(cfg, port=serve, device=device).run()
+        elif checkpoint is not None:
             from ..config import RenderConfig
             from ..ops.image import accum_to_u8
             from ..runtime.renderer import Renderer
@@ -176,6 +203,22 @@ def main(argv=None, device="cuda"):
             if kw["store_render_result"]:
                 write_png(kw.get("out_path", "render.png"),
                           accum_to_u8(accum, done).cpu().numpy())
+        elif frames is not None:
+            # animated frame loop (the reference's frame-loop mode, quirk Q8)
+            from ..config import RenderConfig
+            from ..runtime.frames import FrameLoop
+
+            cfg = RenderConfig(
+                samples=kw["samples"], width=kw["width"], height=kw["height"],
+                chips=kw["gpu_count"],
+                max_depth=kw.get("max_depth", 50),
+                backend=kw.get("backend", "auto"),
+            )
+            pattern = None
+            if kw["store_render_result"]:
+                out = kw.get("out_path", "render.png")
+                pattern = out.replace(".png", "_{0}.png") if "{0}" not in out else out
+            FrameLoop(cfg, device=device).run(frames=frames, store_pattern=pattern)
         else:
             from ..api import ray_trace
 

@@ -3,8 +3,11 @@
 ``parse_args`` gives the JAX CLI's dicts over a list of command lines, with
 its ``unknown argument`` line and its errors; ``main(argv, device="cpu")``
 writes the PNG ``ray_trace(device="cpu")`` writes, runs ``--checkpoint``
-through ``render_resumable``, and exits 1 with one stderr line naming the
-ROADMAP item for each flag whose module the port does not have yet.
+through ``render_resumable``, ``--gpus`` through the row bands (the one CPU
+device: one band, the same PNG), ``--frames`` through the frame loop and
+``--serve`` through the production loop, and exits 1 with one stderr line
+naming the ROADMAP item for each flag whose module the port does not have
+yet.
 """
 
 import os
@@ -86,10 +89,35 @@ def test_checkpoint_runs_render_resumable(tmp_path):
     assert int(z["samples_done"]) == 2 and int(z["number"]) == 2
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--frames", "3"], "item 3"), (["--serve", "0"], "item 3"),
-    (["--autotune"], "item 4"), (["--full"], "item 4"), (["--gpus", "2"], "item 2"),
-])
+SMALL = ["--samples", "1", "--width", "16", "--height", "9", "--depth", "4"]
+
+
+def test_gpus_writes_the_png_of_one_gpu(tmp_path):
+    """``--gpus 2`` renders row bands over the devices there are; on the CPU
+    that is one band, and the PNG is ``--gpus 1``'s byte for byte."""
+    one, two = tmp_path / "one.png", tmp_path / "two.png"
+    assert cli.main(SMALL + ["--store", "--out", str(one)], device="cpu") == 0
+    assert cli.main(SMALL + ["--store", "--gpus", "2", "--out", str(two)], device="cpu") == 0
+    assert one.read_bytes() == two.read_bytes()
+
+
+def test_frames_store_writes_numbered_pngs(tmp_path, capsys):
+    out = tmp_path / "f.png"
+    assert cli.main(SMALL + ["--frames", "2", "--store", "--out", str(out)], device="cpu") == 0
+    assert (tmp_path / "f_0.png").exists() and (tmp_path / "f_1.png").exists()
+    assert "duration_per_frame:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [["--frames", "1"], ["--gpus", "2", "--frames", "1"]])
+def test_serve_runs_the_production_loop(extra, capsys):
+    """``--serve`` with ``--frames`` (or ``--gpus`` above 1) runs the
+    production loop behind the HTTP server for that many frames, then
+    returns 0."""
+    assert cli.main(SMALL + ["--serve", "0"] + extra, device="cpu") == 0
+    assert "live viewer: http://127.0.0.1:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv, item", [(["--autotune"], "item 4"), (["--full"], "item 4")])
 def test_flags_of_later_modules_exit_1(argv, item, capsys):
     assert cli.main(argv + ["--width", "8", "--height", "4"], device="cpu") == 1
     err = capsys.readouterr().err.strip().splitlines()

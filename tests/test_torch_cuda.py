@@ -302,3 +302,33 @@ def test_paged_and_pallas_renders_match_plain_renders(cuda):
         on_cpu = trace.render_band(trace.device_scene_from_numpy(ds_np, "cpu"), vp, **kw)
         diff = (on_gpu != on_cpu).any(dim=2)
         assert int(diff.sum()) <= 3, f"{backend}: {int(diff.sum())} px differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["grid", "mega", "paged"])
+def test_bands_on_one_card_equal_the_whole(cuda, backend):
+    """Four row bands of one card, stepped in turns, each on a stream of its
+    own (MultiChipRenderer, and HeteroRenderer after an uneven re-split),
+    against the single-device render: 0 px differ, and every launch was a
+    kernel's."""
+    from raytrace_tpu_torch import RenderConfig
+    from raytrace_tpu_torch.parallel.hetero import HeteroRenderer
+    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
+    from raytrace_tpu_torch.runtime.renderer import Renderer
+
+    scene = {"grid": generate_random_scene(0.0), "mega": three_sphere_scene(),
+             "paged": _field()}[backend]
+    cfg = RenderConfig(samples=2, width=64, height=37, max_depth=8, backend=backend,
+                       samples_per_call=1)
+    plain = {"grid": gridkernel.grid_megakernel_step_plain,
+             "mega": megakernel.megakernel_step_plain,
+             "paged": pagedkernel.paged_megakernel_step_plain}[backend]
+    before = plain.launches
+    whole = Renderer(cfg, scene=scene, device=cuda).render()[0]
+    bands = MultiChipRenderer(cfg, scene=scene, devices=[cuda] * 4).render()[0]
+    assert torch.equal(bands, whole)
+    hr = HeteroRenderer(cfg, scene=scene, devices=[cuda] * 4, reference_banding=False)
+    hr.rows = [20, 1, 0, 16]
+    one = Renderer(cfg, scene=scene, device=cuda).render_call(2).cpu().numpy()
+    assert (hr.render_frame(2)[0] == one).all()
+    assert plain.launches == before

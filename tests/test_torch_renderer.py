@@ -5,8 +5,10 @@ public entry point (u8 within one level on all but 3 pixels, the chaos
 budget of tests/test_golden_fullscene.py), keep chunking, progressive calls,
 the call merge (``calls_per_exec``) and balanced lanes (``balance_spp``)
 exact, run every backend, checkpoint and resume (the cases of
-tests/test_runtime.py), refuse every option the port does not run yet by
-name, run on the CPU only when asked to, and never import jax.
+tests/test_runtime.py), split row bands over devices for ``gpu_count`` /
+``chips`` above 1 with the single-device image, refuse every option the port
+does not run yet by name, run on the CPU only when asked to, and never
+import jax.
 """
 
 import dataclasses
@@ -96,13 +98,17 @@ def test_mega_backend_and_three_sphere_scene_resolve_to_mega():
     assert megakernel.megakernel_step_plain.launches > before
 
 
-@pytest.mark.parametrize("kw", [
-    dict(gpu_count=2),
-])
-def test_out_of_slice_ray_trace_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        raytrace_tpu_torch.ray_trace(samples=1, width=8, height=4, max_depth=2,
-                                     device="cpu", **kw)
+def test_gpu_count_and_chips_split_row_bands():
+    """``ray_trace(gpu_count=2)`` and ``render_image(chips=...)`` go through
+    the row bands: on the CPU one device, one band; over an explicit device
+    list, one band per entry; the image is the single device's."""
+    kw = dict(samples=1, width=16, height=9, max_depth=4, device="cpu")
+    one = raytrace_tpu_torch.ray_trace(**kw)
+    assert np.array_equal(raytrace_tpu_torch.ray_trace(gpu_count=2, **kw), one)
+    cfg = RenderConfig(samples=1, width=16, height=9, max_depth=4, chips=3)
+    assert np.array_equal(raytrace_tpu_torch.render_image(cfg, device="cpu"), one)
+    assert np.array_equal(
+        raytrace_tpu_torch.render_image(cfg, device="cpu", devices=["cpu"] * 3), one)
 
 
 @pytest.mark.parametrize("backend", ["paged", "pallas", "matmul"])
@@ -158,8 +164,10 @@ def test_cuda_is_the_default_device():
 
 
 def test_out_of_slice_config_and_band_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(RenderConfig(samples=1, width=8, height=4, chips=2), device="cpu")
+    # chips > 1: the Renderer renders on its one device, as JAX's does
+    cfg = RenderConfig(samples=1, width=8, height=4, max_depth=2)
+    assert torch.equal(Renderer(dataclasses.replace(cfg, chips=2), device="cpu").render_call(1),
+                       Renderer(cfg, device="cpu").render_call(1))
     ds = trace.device_scene_from_numpy(
         trace.prepare_scene(raytrace_tpu_torch.generate_random_scene(0.0)), "cpu")
     vp = trace.viewport_arrays(reference_camera(), 8, 4)
@@ -283,6 +291,8 @@ def test_benchmark_frame_loop(capsys):
 
 def test_import_leaves_jax_out():
     code = ("import sys, raytrace_tpu_torch; "
+            "import raytrace_tpu_torch.parallel.hetero, raytrace_tpu_torch.runtime.production, "
+            "raytrace_tpu_torch.runtime.frames, raytrace_tpu_torch.utils.cli; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -2,7 +2,7 @@
 """Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
 Run from the repository root: ``python3 torch_breakdown.py [--scene
-book|dense|gridless|pallas|headline|step] [--root DIR]``.  It needs one CUDA
+book|dense|gridless|pallas|headline|step|bands] [--root DIR]``.  It needs one CUDA
 device and builds the port's kernels on first use.  ``--scene book`` (the default) times the book
 scene at 1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main
 path); ``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160
@@ -55,6 +55,18 @@ launch of the production grid kernel at the smoke run's check state (the
 events, median of ``STEP_REPS``) and prints one JSON line; with ``--root
 DIR`` it imports ``raytrace_tpu_torch`` from the checkout at DIR instead, so
 that two commits' kernels can be timed in turns, each in its own process.
+``--scene bands`` times the book scene at 1920x1080 x 16 spp, exact (or
+with ``--bands-of dense`` the 100k-sphere field at 3840x2160 x 8 spp), as
+four row bands of the one card (``MultiChipRenderer`` over
+``[cuda:0] * 4``) against the whole frame: the walls in turns of the whole
+(``Renderer.render_call``), the shipped bands (each stepped from one thread
+once its last launch is done, a CUDA stream each), the same steps taken in
+turns whether or not the band's launch is done (lockstep), the four bands
+one after another on the calling thread, a thread and a stream per band,
+and a thread per band on the default stream; then one instrumented banded
+call of the shipped and of the lockstep way (each band's launches, kernel
+time by CUDA events on its stream, the host clock at each launch) and the
+profiler's top host and device entries over one banded call.
 """
 
 from __future__ import annotations
@@ -239,13 +251,158 @@ def step(res):
     print(json.dumps(res), flush=True)
 
 
+BANDS = 4
+
+
+def bands(res, scene_name="book"):
+    """A frame as four row bands of the one card against the whole: walls in
+    turns, then one instrumented banded call of the shipped way and of the
+    lockstep way, then one profiled banded call."""
+    import threading
+
+    import torch
+
+    from raytrace_tpu_torch import RenderConfig
+    from raytrace_tpu_torch.models.scene import random_sphere_field
+    from raytrace_tpu_torch.ops import gridkernel, pagedkernel, trace
+    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer, rows_steps
+    from raytrace_tpu_torch.runtime.renderer import Renderer
+
+    dev = torch.device("cuda", 0)
+    spp, w, h = SCENES[scene_name][:3]
+    cfg = RenderConfig(samples=spp, width=w, height=h)
+    scene = random_sphere_field(DENSE_N) if scene_name == "dense" else None
+    whole = Renderer(cfg, scene=scene, device=dev)
+    r = MultiChipRenderer(cfg, scene=scene, devices=[dev] * BANDS)
+    ds = r.device_scenes[dev]
+    res["bands_of"] = scene_name
+    res["backend"] = r.backend
+
+    def band_steps(i):
+        return rows_steps(
+            ds, r.vp, cfg, backend=r.backend, skip_tmax=r.skip_tmax, device=dev,
+            y0=i * r.band_h, rows=r.band_h, seed_y0=i * r.band_h, spp=spp, number=0)
+
+    def band(i):
+        return trace.run_steps(band_steps(i))
+
+    def serial():  # the four bands one after another on the calling thread
+        return torch.cat([band(i) for i in range(BANDS)])
+
+    def lockstep():
+        """The bands stepped in turns, each step taken whether or not its
+        band's last launch is done (so it blocks on it in its host sync)."""
+        main = torch.cuda.current_stream(dev)
+        streams = [torch.cuda.Stream(dev) for _ in range(BANDS)]
+        for st in streams:
+            st.wait_stream(main)
+        gens = [band_steps(i) for i in range(BANDS)]
+        outs = [None] * BANDS
+        running = list(range(BANDS))
+        while running:
+            for i in list(running):
+                with torch.cuda.stream(streams[i]):
+                    try:
+                        next(gens[i])
+                    except StopIteration as stop:
+                        outs[i] = stop.value
+                        streams[i].synchronize()
+                        running.remove(i)
+        return torch.cat(outs)
+
+    def threads(own_stream):  # a thread per band, on a stream of its own or not
+        outs = [None] * BANDS
+        main = torch.cuda.current_stream(dev)
+
+        def run(i):
+            if own_stream:
+                st = torch.cuda.Stream(dev)
+                st.wait_stream(main)
+                with torch.cuda.stream(st):
+                    outs[i] = band(i)
+                st.synchronize()
+            else:
+                outs[i] = band(i)
+                torch.cuda.default_stream(dev).synchronize()
+
+        ths = [threading.Thread(target=run, args=(i,)) for i in range(BANDS)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        return torch.cat(outs)
+
+    ways = {"whole": lambda: whole.render_call(spp), "in_turns": lambda: r.render_call(spp),
+            "lockstep": lockstep, "serial": serial, "threads": lambda: threads(True),
+            "threads_default_stream": lambda: threads(False)}
+    ref = ways["whole"]()
+    for name, fn in ways.items():
+        out = fn()
+        res[f"{name}_px_differ"] = int((out != ref).any(dim=2).sum())
+    order = list(ways)
+    walls = {name: [] for name in order}
+    for name in order + order[::-1] + order + order[::-1]:
+        walls[name].append(wall(ways[name])[1])
+    res["walls_in_turns_s"] = walls
+    res["walls_median_ms"] = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+
+    # one banded call of each stepping way: each launch timed with CUDA
+    # events on its band's stream and stamped on the host clock
+    mod, name = (pagedkernel, "paged_megakernel_step") if r.backend == "paged" else \
+        (gridkernel, "grid_megakernel_step")
+    orig = getattr(mod, name)
+    for way in ("in_turns", "lockstep"):
+        log = []
+
+        def step(*args, **kw):
+            a, b = _events()
+            t0 = time.perf_counter()
+            a.record()
+            out = orig(*args, **kw)
+            b.record()
+            log.append((torch.cuda.current_stream(dev).cuda_stream, t0, a, b,
+                        int(args[3].shape[1])))
+            return out
+
+        step.launches = orig.launches
+        setattr(mod, name, step)
+        try:
+            t_start = time.perf_counter()
+            _, sec = wall(ways[way])
+        finally:
+            setattr(mod, name, orig)
+            orig.launches = step.launches
+        per_band = {"wall_ms": round(sec * 1e3, 3)}
+        for stream, t0, a, b, lanes in log:
+            d = per_band.setdefault(str(stream), dict(launches=0, kernel_ms=0.0, lanes=[],
+                                                      issue_ms=[]))
+            d["launches"] += 1
+            d["kernel_ms"] += a.elapsed_time(b)
+            d["lanes"].append(lanes)
+            d["issue_ms"].append(round((t0 - t_start) * 1e3, 3))
+        res[f"instrumented_{way}"] = per_band
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall(lambda: r.render_call(spp))
+    ka = prof.key_averages()
+    res["profiler_top_host_ms"] = {e.key: round(e.self_cpu_time_total / 1e3, 3) for e in
+                                   sorted(ka, key=lambda e: -e.self_cpu_time_total)[:12]}
+    res["profiler_top_device_ms"] = {e.key: round(e.device_time_total / 1e3, 3) for e in
+                                     sorted(ka, key=lambda e: -e.device_time_total)[:8]}
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=sorted(SCENES) + ["headline", "step"], default="book")
+    ap.add_argument("--scene", choices=sorted(SCENES) + ["headline", "step", "bands"],
+                    default="book")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout to import raytrace_tpu_torch from (--scene step)")
+    ap.add_argument("--bands-of", choices=("book", "dense"), default="book",
+                    help="the scene to split into four bands (--scene bands)")
     ap.add_argument("--m", type=int, nargs="+",
                     help="pixels per lane to sweep the shipped way at (--scene headline)")
     args = ap.parse_args()
@@ -254,7 +411,7 @@ def main() -> int:
         print("torch_breakdown: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    if scene_name in ("headline", "step"):
+    if scene_name in ("headline", "step", "bands"):
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
@@ -262,6 +419,8 @@ def main() -> int:
                "root": os.path.abspath(args.root)}
         if scene_name == "headline":
             headline(res, args.m)
+        elif scene_name == "bands":
+            bands(res, args.bands_of)
         else:
             step(res)
         return 0
