@@ -82,11 +82,30 @@ one line and raises on failure, so any failure exits non-zero:
    ``set_scene``'s shares of its duration_per_frame; and
    ``ProductionLoop(port=0)`` over the four bands for 3 frames at 1920x1080
    x 16 spp, its ``/frame.png`` (PNG signature) and ``/state`` (rows summing
-   to 1080) read over HTTP from localhost.
+   to 1080) read over HTTP from localhost;
+7. runtime ops, autotune, C ABI and entry file, each path that renders in
+   this process with the launch counts set to 0 just before it and read
+   just after it (the grid kernel must have launched, and no plain
+   version): ``chips.profile_for`` of the card is the H100 row and the
+   main path's operating point (M=2 at 1920x1080, K=40, J=2, grid kernel
+   block 128) is the profile's; ``device_trace`` around one 1920x1080 x 16
+   spp book render writes a trace whose CUDA kernel events of the grid
+   kernel number the launches counted; ``FrameStats`` over ten 1-spp 1080p
+   frames; ``autotune`` at 1920x1080 x 32 spp fast over
+   ``default_candidates`` of the profile's seed (a cache file in a
+   temporary directory, deleted after), every candidate's accumulator
+   bit-identical, ns per sample each; ``sweep_block`` over blocks 64, 128
+   and 256 in worker processes, each one's accumulator equal to block
+   128's, with registers, spills and ns per sample per block; the C ABI
+   shim loaded by ctypes: ``ray_trace(16, True, 1920, 1080, 1)`` writes a
+   PNG that decodes to the in-process ``ray_trace``'s image, and the demo
+   executable (``--bogus`` warned about, exit 0) writes the same; the entry
+   file's ``entry()`` band on the card == the same band on the CPU, and
+   ``dryrun_multichip(4)`` over four bands of the card.
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
-of phases 5 and 6); the last line is ``{"ok": true, "device": {...}}``.
+of phases 5, 6 and 7); the last line is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
 
@@ -96,11 +115,13 @@ import faulthandler
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "smoke")
@@ -110,6 +131,9 @@ HEAD_SPP, HEAD_SPP_PER_CALL, HEAD_CALLS_PER_EXEC, HEAD_BALANCE_SPP = 10_000, 250
 FRAME_LOOP_CALLS = 65
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
 N_BANDS, TUNE_ROUNDS, LOOP_FRAMES, PROD_FRAMES = 4, 5, 20, 3
+# the autotuner's phase: spp of each candidate's render, the block sweep's
+# candidates
+TUNE_SPP, SWEEP_BLOCKS = 32, (64, 128, 256)
 # past this many seconds every thread's stack is printed and the run exits 1,
 # inside the 1200 s a run may take
 WATCHDOG_S = 1150
@@ -169,6 +193,26 @@ def compare(kern, plain):
     return int(bad.sum()), err
 
 
+def counted_path(tag, label, kernels, fn, launches, counters, plain_names, totals):
+    """Run ``fn()`` with every launch count at 0; each of ``kernels`` must
+    launch and no plain version.  Adds the counts to ``totals``; returns
+    ``fn()``'s result."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    ran = launches()
+    phase(tag, f"{label}: launches {({k: v for k, v in ran.items() if v})}")
+    if any(ran[k] == 0 for k in kernels) or any(ran[p] for p in plain_names):
+        raise RuntimeError(f"{label}: launches {ran}, want {kernels} and no plain "
+                           f"version")
+    for k, v in ran.items():
+        totals[k] += v
+    return out
+
+
 def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
     """Phase 6: row bands over four bands of the one card, the tuned bands,
     the animated frame loop and the production loop behind its HTTP server.
@@ -192,20 +236,8 @@ def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
     totals = dict.fromkeys(launches(), 0)
 
     def path(label, kernel, fn):
-        """Run ``fn()`` with every count at 0; its kernel must launch and no
-        plain version."""
-        for c in counters:
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        ran = launches()
-        phase("bands", f"{label}: launches {({k: v for k, v in ran.items() if v})}")
-        if ran[kernel] == 0 or any(ran[p] for p in plain_names):
-            raise RuntimeError(f"{label}: {kernel} launched {ran[kernel]} times, plain "
-                               f"versions {({p: ran[p] for p in plain_names})}")
-        for k, v in ran.items():
-            totals[k] += v
-        return out
+        return counted_path("bands", label, (kernel,), fn, launches, counters,
+                            plain_names, totals)
 
     def wall(fn, reps=3):
         """(result, median seconds of ``reps`` synchronised calls after a
@@ -357,9 +389,240 @@ def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
     return totals
 
 
+def decode_png(path):
+    """The u8 [H, W, 3] image of an RGB PNG written by ``utils/png.py``
+    (8-bit RGB, filter 0 on every row)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise RuntimeError(f"{path}: bit depth {depth}, colour type {ctype}")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise RuntimeError(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def port_runtime(dev, smi, kind, launches, counters, plain_names) -> dict:
+    """Phase 7: the runtime ops (chip profile, device trace, FrameStats),
+    the autotuner (M, J, K in-process; the block in worker processes), the
+    C ABI through ctypes and its demo executable, and the entry file.  Each
+    path that renders in this process runs with the launch counts set to 0
+    just before it; returns the kernels' launches summed over them."""
+    import ctypes
+    import glob
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import __graft_entry_torch__ as graft
+    import raytrace_tpu_torch
+    from raytrace_tpu_torch import RenderConfig, _build
+    from raytrace_tpu_torch.ops import gridkernel
+    from raytrace_tpu_torch.runtime import autotune, chips, profiling
+    from raytrace_tpu_torch.runtime import renderer as rmod
+
+    card = f"({smi})"
+    totals = dict.fromkeys(launches(), 0)
+
+    def path(tag, label, kernels, fn):
+        return counted_path(tag, label, kernels, fn, launches, counters, plain_names,
+                            totals)
+
+    # ---- ops: the card's profile, a device trace, FrameStats ---------------
+    prof = chips.profile_for(kind)
+    m_main = rmod.band_layout(RenderConfig(width=MAIN_W, height=MAIN_H), dev, "grid",
+                              MAIN_H)[0]
+    block = _build.grid_block()
+    env_block = os.environ.get(_build.GRID_BLOCK_ENV)
+    phase("ops", f"profile_for({kind!r}): {prof.kind_substr!r} row (matched by name: "
+          f"{prof.kind_substr in kind.lower()}), lanes_per_thread {prof.lanes_per_thread}, "
+          f"block {prof.block}, K {prof.k_steps}, J {prof.j_steps}; the main path at "
+          f"{MAIN_W}x{MAIN_H}: M={m_main}, K={gridkernel.K_STEPS}, J={gridkernel.J_STEPS}, "
+          f"grid kernel block {block} (library {_build.build_dir(block).name}"
+          f"{f', {_build.GRID_BLOCK_ENV}={env_block}' if env_block else ''})")
+    if (prof is not chips.DEFAULT or m_main != 2
+            or (gridkernel.K_STEPS, gridkernel.J_STEPS) != (prof.k_steps, prof.j_steps)
+            or (block != prof.block and not env_block)):
+        raise RuntimeError("the main path's operating point moved off the H100 profile")
+
+    trace_dir = os.path.join(OUT, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    book = rmod.Renderer(RenderConfig(samples=MAIN_SPP, width=MAIN_W, height=MAIN_H),
+                         device=dev)
+    book.render()  # warm
+
+    def traced():
+        t0 = time.perf_counter()
+        with profiling.device_trace(trace_dir, device=dev):
+            book.render()
+        return time.perf_counter() - t0
+
+    sec = path("ops", "device_trace book render", ("grid_megakernel_step",), traced)
+    counted = totals["grid_megakernel_step"]
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"device_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    grid_ev = [e for e in kern if "grid_megakernel_step_kernel" in e.get("name", "")]
+    grid_us = sum(float(e.get("dur", 0)) for e in grid_ev)
+    phase("ops", f"device_trace around Renderer.render {MAIN_W}x{MAIN_H} x {MAIN_SPP} spp: "
+          f"{sec:.3f} s with the profiler, {os.path.getsize(files[0])} B trace, "
+          f"{len(kern)} CUDA kernel events, {len(grid_ev)} of the grid kernel "
+          f"({grid_us / 1e3:.3f} ms) against {counted} launches counted {card}")
+    if len(grid_ev) != counted:
+        raise RuntimeError(f"the trace holds {len(grid_ev)} grid kernel events, the "
+                           f"counter {counted}")
+
+    one = rmod.Renderer(RenderConfig(samples=1, width=MAIN_W, height=MAIN_H), device=dev)
+    one.render_call(1)  # warm
+    stats = profiling.FrameStats()
+
+    def frames():
+        for _ in range(10):
+            with stats.frame():
+                one.render_call(1)
+                torch.cuda.synchronize()
+
+    path("ops", "FrameStats 10 frames", ("grid_megakernel_step",), frames)
+    rep = stats.report()
+    phase("ops", f"FrameStats {MAIN_W}x{MAIN_H} x 1 spp, 10 frames: {rep}, adaptive "
+          f"window {stats.adaptive_frame_count()} frames {card}")
+    if rep["frames"] != 10 or not rep["duration_per_frame"] > 0:
+        raise RuntimeError(f"FrameStats: {rep}")
+
+    # ---- autotune: (M, J, K) in-process, the block across processes ---------
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    saved_cache = autotune.CACHE_PATH
+    autotune.CACHE_PATH = Path(tmp) / "tune.json"
+    try:
+        res = path("autotune", "autotune", ("grid_megakernel_step",),
+                   lambda: autotune.autotune(MAIN_W, MAIN_H, spp=TUNE_SPP, rounds=2,
+                                             mode="fast", verbose=False, device=dev))
+        want = autotune.default_candidates(m_main, prof.j_steps, prof.k_steps)
+        phase("autotune", f"{MAIN_W}x{MAIN_H} x {TUNE_SPP} spp fast, ns per sample by "
+              f"MxJxK {res['candidates']}, best {res['m']}x{res['j']}x{res['k']}; every "
+              f"candidate's accumulator {res['acc_hash']} {card}")
+        if list(res["candidates"]) != [f"{m}x{j}x{k}" for m, j, k in want]:
+            raise RuntimeError(f"autotune swept {list(res['candidates'])}, want {want}")
+        if (gridkernel.K_STEPS, gridkernel.J_STEPS) != (prof.k_steps, prof.j_steps):
+            raise RuntimeError("autotune left the grid kernel's J or K changed")
+        t0 = time.perf_counter()
+        blk = autotune.sweep_block(SWEEP_BLOCKS, MAIN_W, MAIN_H, spp=TUNE_SPP, rounds=3,
+                                   m=m_main, j=prof.j_steps, k=prof.k_steps,
+                                   mode="fast", verbose=False, device=dev)
+        phase("autotune", f"sweep_block {SWEEP_BLOCKS} at {MAIN_W}x{MAIN_H} x {TUNE_SPP} "
+              f"spp fast, M={m_main}: ns per sample {blk['block_candidates']}, best "
+              f"{blk['block']}; registers, spill stores (ptxas, the most over the grid "
+              f"kernel's instances), local bytes and blocks per SM (the book instance) "
+              f"{blk['block_ptxas']}; refused {blk['block_refused']}; accumulator "
+              f"{blk['acc_hash']}; {time.perf_counter() - t0:.1f} s {card}")
+        if blk["block_refused"] or blk["acc_hash"] != res["acc_hash"]:
+            raise RuntimeError("a block's image differs from block 128's or the sweep's "
+                               "from the in-process one")
+    finally:
+        autotune.CACHE_PATH = saved_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("autotune", f"main path library: grid kernel block {_build.grid_block()} "
+          f"({_build.build_dir(_build.grid_block()).name}), K={gridkernel.K_STEPS}, "
+          f"J={gridkernel.J_STEPS}")
+
+    # ---- abi: the shim through ctypes, then the demo executable -------------
+    abi = _build.abi_library()
+    abi_dir, demo_dir = os.path.join(OUT, "abi"), os.path.join(OUT, "abi", "demo")
+    shutil.rmtree(abi_dir, ignore_errors=True)
+    os.makedirs(demo_dir)
+    os.environ.pop("RAYTRACE_TORCH_DEVICE", None)
+    lib = ctypes.CDLL(str(abi["lib"]))
+    lib.ray_trace.argtypes = [ctypes.c_uint32, ctypes.c_bool, ctypes.c_uint32,
+                              ctypes.c_uint32, ctypes.c_uint32]
+    lib.ray_trace.restype = None
+
+    def shim():
+        cwd = os.getcwd()
+        os.chdir(abi_dir)
+        try:
+            t0 = time.perf_counter()
+            lib.ray_trace(MAIN_SPP, True, MAIN_W, MAIN_H, 1)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+
+    t_abi = path("abi", "ray_trace through the C ABI", ("grid_megakernel_step",), shim)
+    ref_png = os.path.join(abi_dir, "in_process.png")
+
+    def in_process():
+        t0 = time.perf_counter()
+        img = raytrace_tpu_torch.ray_trace(MAIN_SPP, True, MAIN_W, MAIN_H,
+                                           out_path=ref_png)
+        return img, time.perf_counter() - t0
+
+    ref, t_ref = path("abi", "ray_trace in-process", ("grid_megakernel_step",), in_process)
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [str(abi["demo"]), "--samples", str(MAIN_SPP), "--width", str(MAIN_W),
+         "--height", str(MAIN_H), "--store", "--bogus"],
+        cwd=demo_dir, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    t_demo = time.perf_counter() - t0
+    shim_img = decode_png(os.path.join(abi_dir, "render.png"))
+    demo_png = os.path.join(demo_dir, "render.png")
+    demo_img = decode_png(demo_png) if os.path.exists(demo_png) else None
+    dpf = [ln for ln in demo.stdout.splitlines() if ln.startswith("duration_per_frame")]
+    phase("abi", f"ray_trace({MAIN_SPP}, True, {MAIN_W}, {MAIN_H}, 1): through ctypes "
+          f"{t_abi:.3f} s, in-process {t_ref:.3f} s, its PNG == the in-process image "
+          f"{np.array_equal(shim_img, ref)}; demo exe {t_demo:.3f} s (a process: "
+          f"interpreter, torch and CUDA start) rc {demo.returncode}, {dpf}, stderr "
+          f"{demo.stderr.strip().splitlines()[:1]}, its PNG == the in-process image "
+          f"{demo_img is not None and np.array_equal(demo_img, ref)} {card}")
+    if not np.array_equal(shim_img, ref):
+        raise RuntimeError("the C ABI's PNG differs from the in-process render")
+    if (demo.returncode != 0 or "unknown argument: --bogus" not in demo.stderr or not dpf
+            or demo_img is None or not np.array_equal(demo_img, ref)):
+        raise RuntimeError(f"demo exe: rc {demo.returncode}\n{demo.stdout[-2000:]}\n"
+                           f"{demo.stderr[-4000:]}")
+
+    # ---- entry: the entry file's band step and its multi-device dry run -----
+    fn, args = graft.entry()
+    out = path("entry", "entry() on the card", ("grid_megakernel_step",),
+               lambda: fn(*args))
+    fn_cpu, args_cpu = graft.entry("cpu")
+    plain = fn_cpu(*args_cpu)
+    same = torch.equal(out.cpu(), plain)
+    phase("entry", f"entry(): {tuple(out.shape)} on the card == the same fn on the CPU "
+          f"(plain version): {same}")
+    if not same:
+        raise RuntimeError("entry(): the card's band differs from the CPU's")
+    dry = path("entry", f"dryrun_multichip({N_BANDS})",
+               ("grid_megakernel_step", "paged_megakernel_step"),
+               lambda: graft.dryrun_multichip(N_BANDS))
+    phase("entry", f"dryrun_multichip({N_BANDS}) over {[str(dev)] * N_BANDS}: "
+          f"{ {k: (v.shape, float(v.sum())) for k, v in dry.items()} }")
+    return totals
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -400,7 +663,8 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"fast-math instructions in the kernels' PTX: {bad}")
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    phase("build", f"{info['seconds']:.1f} s (0 = cached), {info['lib'].name} from "
+    phase("build", f"{info['seconds']:.1f} s (0 = cached), {info['lib'].name} (grid "
+          f"kernel block {info['block']}) from "
           f"{', '.join(_build.SOURCES)}; PTX clean of {', '.join(_build.FORBIDDEN_PTX)}; "
           f"ptxas: {regs}")
     _build.library()
@@ -935,11 +1199,16 @@ def main() -> int:
         records[name].update(max_abs_err=max(records[name]["max_abs_err"], b_err),
                              band_ms=b_ms, band_plain_ms=b_plain_ms)
     band_counts = bands_and_frames(dev, smi, launches, counters, plain_names)
-    for name in records:
-        if main_counts[name] + band_counts[name] == 0:
-            raise RuntimeError(f"{name} did not launch on the main path")
-        records[name]["launches"] = main_counts[name] + band_counts[name]
 
+    # ---- 7. runtime ops, autotune, C ABI, entry file --------------------------
+    port_counts = port_runtime(dev, smi, kind, launches, counters, plain_names)
+    for name in records:
+        n = main_counts[name] + band_counts[name] + port_counts[name]
+        if n == 0:
+            raise RuntimeError(f"{name} did not launch on the main path")
+        records[name]["launches"] = n
+
+    phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

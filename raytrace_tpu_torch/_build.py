@@ -13,9 +13,18 @@ Nothing here runs at import: ``library()`` builds on first use and raises if
 nvcc is missing or the build fails.  There is no fallback.  It holds a lock,
 so threads that launch at once start one build.
 
+The grid kernel's threads per block is a define of its translation unit
+(``-DRT_GRID_BLOCK``), part of the hash, so every block size has a library
+of its own.  ``grid_block()`` resolves it once per process, at the first
+build: ``RAYTRACE_TORCH_GRID_BLOCK`` if set, else the ``block`` that the
+autotuner's block sweep cached for CUDA device 0's kind
+(``runtime/autotune.py``), else 128.
+
 ``tuner_library()`` builds the JAX package's native workload tuner
 (``native/tuner.cpp``, read in place) with g++ into
-``build/tuner/<hash>/`` the same way, for ``runtime/tuner.py``.
+``build/tuner/<hash>/`` the same way, for ``runtime/tuner.py``;
+``abi_library()`` builds the port's C ABI shim and its demo executable
+(``native/``) into ``build/abi/<hash>/``.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import tempfile
 import threading
 import time
@@ -39,6 +50,9 @@ HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
 LIB_NAME = "libraytrace_kernels.so"
+GRID_SOURCE = "gridkernel.cu"
+GRID_BLOCK_ENV = "RAYTRACE_TORCH_GRID_BLOCK"
+DEFAULT_GRID_BLOCK = 128
 # PTX instructions that would break the IEEE contract (fast-math lowering)
 FORBIDDEN_PTX = ("sqrt.approx.f32", "div.approx.f32", "div.full.f32", "rsqrt",
                  "sin.approx", "cos.approx")
@@ -69,17 +83,53 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def source_hash() -> str:
+def check_block(block: int) -> int:
+    """``block`` if the grid kernel can take it as its threads per block (a
+    multiple of 32 dividing 1024), else raise."""
+    block = int(block)
+    if block < 32 or block % 32 or 1024 % block:
+        raise ValueError(f"grid kernel block {block}: a multiple of 32 dividing 1024")
+    return block
+
+
+def resolve_grid_block(device_kind: str) -> int:
+    """The grid kernel's threads per block for a card of ``device_kind``:
+    ``RAYTRACE_TORCH_GRID_BLOCK`` if set, else the autotune cache's block for
+    that kind, else 128."""
+    env = os.environ.get(GRID_BLOCK_ENV)
+    if env:
+        return check_block(env)
+    from .runtime.autotune import cached_block
+
+    cached = cached_block(device_kind)
+    return check_block(cached) if cached is not None else DEFAULT_GRID_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def grid_block() -> int:
+    """This process's grid kernel block, resolved at its first call (the
+    first build) for CUDA device 0."""
+    import torch
+
+    return resolve_grid_block(torch.cuda.get_device_name(0))
+
+
+def _defines(name: str, block: int) -> list:
+    return [f"-DRT_GRID_BLOCK={block}"] if name == GRID_SOURCE else []
+
+
+def source_hash(block: int) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
+        h.update(" ".join(_defines(name, block)).encode())
     h.update(" ".join((ARCH,) + FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
-    return BUILD_ROOT / source_hash()
+def build_dir(block: int) -> Path:
+    return BUILD_ROOT / source_hash(block)
 
 
 def _run_all(cmds) -> str:
@@ -93,16 +143,19 @@ def _run_all(cmds) -> str:
     return "".join(outs)
 
 
-def build() -> dict:
-    """Build the shared library and one PTX file per kernel source if they
-    are missing.  Returns {"lib", "ptx", "seconds", "log"}; ``seconds`` is 0
-    when nothing was built, ``log`` holds ptxas' register report."""
-    out = build_dir()
+def build(block: int = None) -> dict:
+    """Build the shared library and one PTX file per kernel source, with
+    the grid kernel at ``block`` threads per block (default ``grid_block()``),
+    if they are missing.  Returns {"lib", "ptx", "seconds", "log", "block"};
+    ``seconds`` is 0 when nothing was built, ``log`` holds ptxas' register
+    report."""
+    block = grid_block() if block is None else check_block(block)
+    out = build_dir(block)
     lib = out / LIB_NAME
     ptx = {name: out / (Path(name).stem + ".ptx") for name in SOURCES}
     log_path = out / "build.log"
     if lib.exists() and all(p.exists() for p in ptx.values()):
-        return dict(lib=lib, ptx=ptx, seconds=0.0,
+        return dict(lib=lib, ptx=ptx, seconds=0.0, block=block,
                     log=log_path.read_text() if log_path.exists() else "")
     out.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -111,9 +164,10 @@ def build() -> dict:
         objs = [str(Path(tmp) / (Path(name).stem + ".o")) for name in SOURCES]
         log = _run_all(
             [[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
-              "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", "-o", obj, name]
+              *_defines(name, block), "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
+              "-o", obj, name]
              for name, obj in zip(SOURCES, objs)]
-            + [[nvcc, "-arch=compute_90a", *FLAGS, "-ptx", "-o",
+            + [[nvcc, "-arch=compute_90a", *FLAGS, *_defines(name, block), "-ptx", "-o",
                 str(Path(tmp) / dst.name), name] for name, dst in ptx.items()])
         tmp_lib = Path(tmp) / LIB_NAME
         log += _run_all([[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}",
@@ -124,7 +178,24 @@ def build() -> dict:
         (Path(tmp) / "build.log").write_text(log)
         os.replace(Path(tmp) / "build.log", log_path)
         os.replace(tmp_lib, lib)
-    return dict(lib=lib, ptx=ptx, seconds=time.perf_counter() - t0, log=log)
+    return dict(lib=lib, ptx=ptx, seconds=time.perf_counter() - t0, log=log, block=block)
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """{entry function: {"registers", "spill_stores"}} of the instances of
+    ``kernel`` in a build's ptxas log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            cur = name if kernel in name else None
+            if cur:
+                out[cur] = {"registers": 0, "spill_stores": 0}
+        elif cur and "bytes spill stores" in ln:
+            out[cur]["spill_stores"] = int(ln.split("bytes stack frame,")[1].split()[0])
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def forbidden_ptx(ptx_paths) -> dict:
@@ -166,7 +237,7 @@ def error_string(err: int) -> str:
 
 def occupancy(kernel: str, *args: int) -> dict:
     """What the card makes of one instance of a kernel, from
-    ``rt_<kernel>_occupancy(*args, out)``: resident 128-thread blocks per SM
+    ``rt_<kernel>_occupancy(*args, out)``: resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers per
     thread, local memory per thread (spills and stack) and static shared
     memory per block, in bytes."""
@@ -205,3 +276,65 @@ def tuner_library() -> Path:
             raise RuntimeError(f"g++ failed ({res.returncode}) on {TUNER_SOURCE}:\n{res.stdout}")
         os.replace(tmp_lib, lib)
     return lib
+
+
+ABI_DIR = Path(__file__).resolve().parent / "native"
+ABI_LIB = "libraytrace_torch.so"
+ABI_DEMO = "raytrace_torch_demo"
+
+
+def _python_flags():
+    """(include flags, link flags of libpython) of this interpreter, from
+    ``sysconfig`` (``python3-config`` may be missing)."""
+    inc = sysconfig.get_paths()["include"]
+    if not (Path(inc) / "Python.h").exists():
+        raise RuntimeError(f"Python.h not found in {inc}: the C ABI cannot be built")
+    cv = sysconfig.get_config_var
+    libdir, libpl = cv("LIBDIR") or "", cv("LIBPL") or ""
+    extra = (cv("LIBS") or "").split() + (cv("SYSLIBS") or "").split()
+    if cv("Py_ENABLE_SHARED"):
+        link = [f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-Wl,--no-as-needed",
+                f"-lpython{cv('VERSION')}{cv('ABIFLAGS') or ''}"]
+    else:  # a static libpython: all of it, its symbols exported (-rdynamic)
+        link = ["-Wl,--whole-archive", str(Path(libpl) / cv("LIBRARY")),
+                "-Wl,--no-whole-archive"]
+    return [f"-I{inc}"], link + extra
+
+
+def abi_library() -> dict:
+    """{"lib", "demo"}: the C ABI shim ``libraytrace_torch.so``
+    (``native/raytrace_abi.cpp``, g++; Python's symbols left to the process
+    that loads it) and the demo executable ``raytrace_torch_demo``
+    (``native/main.c``, cc; libpython linked in, rpath ``$ORIGIN``), built
+    into ``build/abi/<hash of sources, flags and interpreter>/`` if missing.
+    The shim starts the interpreter it was built with when it finds none.
+    Raises if a compiler or Python's headers are missing or a build fails."""
+    gxx, cc = shutil.which("g++"), shutil.which("cc") or shutil.which("gcc")
+    if gxx is None or cc is None:
+        raise RuntimeError("g++ or cc not found: the C ABI cannot be built")
+    inc, link = _python_flags()
+    shim = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall", *inc,
+            f'-DRT_PYTHON_EXECUTABLE="{sys.executable}"']
+    demo = ["-O2", "-Wall", "-rdynamic", "-Wl,-rpath,$ORIGIN"]
+    h = hashlib.sha256()
+    for name in ("raytrace_abi.cpp", "main.c"):
+        h.update((ABI_DIR / name).read_bytes())
+    h.update(" ".join(shim + demo + link).encode())
+    out = REPO / "build" / "abi" / h.hexdigest()[:16]
+    lib, exe = out / ABI_LIB, out / ABI_DEMO
+    if lib.exists() and exe.exists():
+        return dict(lib=lib, demo=exe)
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        cmds = [[gxx, *shim, "-o", str(Path(tmp) / ABI_LIB), str(ABI_DIR / "raytrace_abi.cpp")],
+                [cc, *demo, "-o", str(Path(tmp) / ABI_DEMO), str(ABI_DIR / "main.c"),
+                 f"-L{tmp}", "-lraytrace_torch", *link]]
+        for cmd in cmds:
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"{cmd[0]} failed ({res.returncode}): "
+                                   f"{' '.join(cmd)}\n{res.stdout}")
+        os.replace(Path(tmp) / ABI_LIB, lib)
+        os.replace(Path(tmp) / ABI_DEMO, exe)  # last: its presence marks a whole build
+    return dict(lib=lib, demo=exe)

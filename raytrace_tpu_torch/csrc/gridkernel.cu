@@ -29,11 +29,11 @@
 //   into `acc` [p_total, 3] at its home index (one writer per pixel, no
 //   atomics), so a lane moves 19 + 9 rows in and out, and the driver
 //   (ops/trace.py:_render_band_mega) launches over the live lanes only;
-// - `__launch_bounds__(128, 8)`: 64 registers (and a 104-byte frame, 72
-//   bytes of it spills) for 8 resident blocks per SM instead of 84 registers
-//   for 5 -- the fastest of 1, 6, 7, 8 and 10 blocks on the card, and faster
-//   than staging the cells and attributes (48 KB for the book) in shared
-//   memory (PERF.md).
+// - `__launch_bounds__(128, 8)` (the default block): 64 registers (and a
+//   104-byte frame, 72 bytes of it spills) for 8 resident blocks per SM
+//   instead of 84 registers for 5 -- the fastest of 1, 6, 7, 8 and 10
+//   blocks on the card, and faster than staging the cells and attributes
+//   (48 KB for the book) in shared memory (PERF.md).
 // Left as it is: 14 of the book's 18 globals are the small spheres of one
 // boundary cell line that models/grid.py:build_grid moves out of the grid
 // to save the TPU kernel a fetch block; every segment start tests them, and
@@ -68,8 +68,17 @@ constexpr int R_CUR = 16, F_ROWS = 19;
 constexpr int U_MARCH = 5, U_ICX = 6, U_ICZ = 7, U_LANE0 = 8, U_CALL = 9, U_ROWS = 10;
 constexpr int S_NCALLS = 5, S_SPPLAST = 6;  // scal slots of the call merge
 constexpr float TAG = 4096.0f;  // bkey >= TAG: global winner TAG + id
-constexpr int BLOCK = 128;
-constexpr int MIN_BLOCKS = 8;  // resident blocks per SM asked of ptxas
+// Threads per block, a define of this translation unit (_build.py passes
+// -DRT_GRID_BLOCK: the autotuner's block sweep builds one library per
+// value).  BLOCK x MIN_BLOCKS stays 1024 threads per SM asked of ptxas, so a
+// thread keeps 64 registers whatever the block.
+#ifndef RT_GRID_BLOCK
+#define RT_GRID_BLOCK 128
+#endif
+constexpr int BLOCK = RT_GRID_BLOCK;
+static_assert(BLOCK >= 32 && BLOCK % 32 == 0 && 1024 % BLOCK == 0,
+              "RT_GRID_BLOCK: a multiple of 32 dividing 1024");
+constexpr int MIN_BLOCKS = 1024 / BLOCK;  // resident blocks per SM asked of ptxas
 constexpr int MAX_G = 32;  // models/grid.py MAX_GTAB: rows of gtab and gttab
 
 // gscal slots (models/grid.py G_*)

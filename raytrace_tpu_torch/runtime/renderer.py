@@ -36,10 +36,6 @@ _TARGET_LANES = {
     "mega": 1 << 21, "grid": 1 << 21, "paged": 1 << 21,
 }
 CPU_LANES_TARGET = 1 << 12  # the plain steps' lane target on the CPU
-# lanes per thread slot of the card, by backend: the grid driver launches
-# over its live lanes only, and its 1080p x 16 spp frame took the least
-# kernel time at M=2, 4x the card's 2048 threads per SM (PERF.md)
-LANES_PER_THREAD = {"grid": 4}
 M_MAX = 64  # pixels-per-lane cap
 
 
@@ -85,12 +81,16 @@ def render_device(device) -> torch.device:
 
 def lanes_target(device: torch.device, backend: str = "mega") -> int:
     """Lane target of a band: on a CUDA device every SM's thread slots times
-    ``LANES_PER_THREAD`` of the backend, a small fixed count for the plain
-    steps on the CPU."""
+    the card profile's ``lanes_per_thread`` for the grid backend (its driver
+    launches over the live lanes only, and its 1080p x 16 spp frame took
+    the least kernel time at 4, M=2; ``runtime/chips.py``) and 1 for the
+    others; a small fixed count for the plain steps on the CPU."""
     if device.type == "cuda":
+        from .chips import profile_for
+
         p = torch.cuda.get_device_properties(device)
-        return (p.multi_processor_count * p.max_threads_per_multi_processor
-                * LANES_PER_THREAD.get(backend, 1))
+        per_thread = profile_for(p.name).lanes_per_thread if backend == "grid" else 1
+        return p.multi_processor_count * p.max_threads_per_multi_processor * per_thread
     return CPU_LANES_TARGET
 
 

@@ -8,8 +8,11 @@ the device as a Python argument ("cuda" by default; "cpu" runs the kernels'
 plain torch versions).  ``--gpus N`` splits row bands over up to N devices
 (one GPU gives one band); ``--serve`` runs the live viewer, or with
 ``--gpus`` above 1 or ``--frames`` the production loop; ``--frames`` alone
-runs the animated frame loop.  ``--autotune`` and ``--full``, whose module
-the port does not have yet, exit 1 with a line naming their ROADMAP item.
+runs the animated frame loop.  ``--autotune`` applies the grid kernel's
+tuned (M, J, K) for the device and mode, measuring it first if the cache has
+none (``runtime/autotune.py``); with ``--full`` it also sweeps the grid
+kernel's threads per block on a CUDA device (a later process builds at the
+winner) and exits 1 on the CPU.
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ HELP = """\
 --checkpoint <path>               # Resume/checkpoint progressive renders
 --balance <probe-spp>             # Measured-cost lane balancing (grid;
                                   # bit-identical image; 0=off)
---autotune                        # Tune kernel knobs for this chip (cached)
---full                            # With --autotune: also sweep TILE
-                                  # (cross-process; applied at next import)
+--autotune                        # Tune kernel knobs for this GPU (cached)
+--full                            # With --autotune: also sweep the grid
+                                  # kernel's block size (cross-process;
+                                  # applied at the next process's build)
 --serve <port>                    # Live progressive HTTP viewer (0 = auto);
                                   # with --gpus N>1 and/or --frames: the
                                   # animated multi-device production loop
@@ -136,13 +140,6 @@ def parse_args(argv):
     return kw
 
 
-# flags of modules still to port -> their ROADMAP item (queue 1)
-_NOT_PORTED = {
-    "_autotune": "--autotune: the kernel autotuner (ROADMAP queue 1, item 4)",
-    "_autotune_full": "--full: the kernel autotuner (ROADMAP queue 1, item 4)",
-}
-
-
 def main(argv=None, device="cuda"):
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -154,11 +151,28 @@ def main(argv=None, device="cuda"):
         return 0
     frames = kw.pop("_frames", None)
     checkpoint = kw.pop("_checkpoint", None)
+    tune = kw.pop("_autotune", False)
+    tune_full = kw.pop("_autotune_full", False)
     serve = kw.pop("_serve", None)
     try:
-        for key, what in _NOT_PORTED.items():
-            if kw.pop(key, None) is not None:
-                raise NotImplementedError(what)
+        if tune:
+            # the cached (or a measured) operating point of this device and
+            # mode; the image is bit-identical for any M, J, K and block
+            from ..runtime import autotune as at
+
+            if tune_full:
+                at.cuda_device(device)  # the block sweep needs a card: refuse first
+            tmode = kw.get("mode", "exact")
+            tuned = at.load_tuned(at.device_kind(device), mode=tmode)
+            if tuned is None:
+                tuned = at.autotune(width=kw["width"], height=kw["height"], mode=tmode,
+                                    device=device)
+            if tune_full and "block" not in tuned:
+                # the winner lands in the cache; this process keeps its build
+                tuned = at.sweep_block(m=tuned["m"], j=tuned["j"], k=tuned["k"],
+                                       mode=tmode, device=device)
+            at.apply_tuned(tuned)
+            kw.setdefault("pixels_per_lane", tuned["m"])
         if serve is not None:
             # live viewer and camera input (the headless analogue of the
             # reference's per-GPU windows, window.hpp:29-54)

@@ -5,9 +5,9 @@ its ``unknown argument`` line and its errors; ``main(argv, device="cpu")``
 writes the PNG ``ray_trace(device="cpu")`` writes, runs ``--checkpoint``
 through ``render_resumable``, ``--gpus`` through the row bands (the one CPU
 device: one band, the same PNG), ``--frames`` through the frame loop and
-``--serve`` through the production loop, and exits 1 with one stderr line
-naming the ROADMAP item for each flag whose module the port does not have
-yet.
+``--serve`` through the production loop and ``--autotune`` at the cached
+point, and exits 1 with one stderr line for ``--full`` (the block sweep)
+on the CPU.
 """
 
 import os
@@ -117,11 +117,28 @@ def test_serve_runs_the_production_loop(extra, capsys):
     assert "live viewer: http://127.0.0.1:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv, item", [(["--autotune"], "item 4"), (["--full"], "item 4")])
-def test_flags_of_later_modules_exit_1(argv, item, capsys):
-    assert cli.main(argv + ["--width", "8", "--height", "4"], device="cpu") == 1
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and "ROADMAP" in err[0] and item in err[0]
+@pytest.mark.parametrize("argv, rc", [(["--autotune"], 0), (["--autotune", "--full"], 1)])
+def test_flags_of_later_modules_exit_1(argv, rc, tmp_path, monkeypatch, capsys):
+    """The flags of the autotuner, once a later module's: ``--autotune``
+    with a pre-seeded cache renders at the tuned point, and ``--full`` (the
+    block sweep) exits 1 on the CPU with the reason, before any sweep."""
+    from raytrace_tpu_torch.ops import gridkernel as gk
+    from raytrace_tpu_torch.runtime import autotune as at
+
+    cache = tmp_path / "tune.json"
+    cache.write_text('{"cpu": {"m": 1, "j": 3, "k": 5, "device_kind": "cpu"}}')
+    monkeypatch.setattr(at, "CACHE_PATH", cache)
+    monkeypatch.setattr(gk, "J_STEPS", gk.J_STEPS)  # restored after the test
+    monkeypatch.setattr(gk, "K_STEPS", gk.K_STEPS)
+    assert cli.main(argv + ["--width", "8", "--height", "4", "--depth", "4"],
+                    device="cpu") == rc
+    out = capsys.readouterr()
+    if rc == 0:
+        assert (gk.J_STEPS, gk.K_STEPS) == (3, 5) and "duration_per_frame" in out.out
+    else:
+        err = out.err.strip().splitlines()
+        assert len(err) == 1 and "CUDA device" in err[0] and "ROADMAP" not in err[0]
+        assert "duration_per_frame" not in out.out
 
 
 def test_module_entry_point_runs():

@@ -12,15 +12,16 @@ noise, so JAX's 1% chaos budget between band shapes does not apply within
 the port.  Against the JAX package (``matmul``, XLA:CPU contracting FMAs)
 reference banding is held to that budget.  The cases of tests/test_hetero.py
 follow, with ``render_band_steps`` replaced by a synthetic device for the
-probe and the tuner's convergence: each of its steps first blocks (sleeps)
-until its previous launch is done, as the port's drivers block on their
-host sync, then issues the next launch and yields it.
+probe and the tuner's convergence: each of its steps first blocks until
+its previous launch is done, as the port's drivers block on their host
+sync, then issues the next launch and yields it.  Its launches run on a
+virtual clock that the dispatch reads in place of ``time``, so the times
+the probe and the tuner see are exact, whatever the host's load.
 """
 
 import shutil
 import sys
 import threading
-import time
 
 import jax
 import numpy as np
@@ -37,7 +38,7 @@ from raytrace_tpu_torch.models.scene import (generate_random_scene,
                                              three_sphere_scene)
 from raytrace_tpu_torch.ops import launches
 from raytrace_tpu_torch.parallel import devices as pdev
-from raytrace_tpu_torch.parallel import sharding
+from raytrace_tpu_torch.parallel import hetero, sharding
 from raytrace_tpu_torch.parallel.hetero import HeteroRenderer
 from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
 from raytrace_tpu_torch.runtime import tuner
@@ -151,21 +152,55 @@ def test_pick_devices(monkeypatch):
     assert len(pdev.pick_devices(99)) == 3
 
 
+class _Clock:
+    """A virtual clock for the synthetic devices: ``perf_counter`` reads it,
+    and ``sleep`` (what ``run_in_turns`` calls while every band's launch is
+    in flight) advances it to the end of the next launch in flight, so every
+    time the dispatch reads is exact rows x per-row seconds, whatever the
+    host's load."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.ends = []  # end times of the launches issued
+
+    def perf_counter(self):
+        return self.now
+
+    def sleep(self, seconds):
+        later = [e for e in self.ends if e > self.now]
+        self.now = (self.now + seconds) if seconds > 0 else min(later, default=self.now)
+
+    def advance_to(self, t):
+        self.now = max(self.now, t)
+
+
+@pytest.fixture()
+def clock(monkeypatch):
+    """The virtual clock, read by ``parallel/devices.py`` and
+    ``parallel/hetero.py`` in place of ``time``."""
+    c = _Clock()
+    monkeypatch.setattr(pdev, "time", c)
+    monkeypatch.setattr(hetero, "time", c)
+    return c
+
+
 class _Launch:
     """A synthetic launch on a device of its own: done ``seconds`` after it
-    was issued; ``query`` as a CUDA event's."""
+    was issued on the virtual clock; ``query`` as a CUDA event's."""
 
-    def __init__(self, seconds):
-        self.end = time.perf_counter() + seconds
+    def __init__(self, clock, seconds):
+        self.clock = clock
+        self.end = clock.now + seconds
+        clock.ends.append(self.end)
 
     def query(self):
-        return time.perf_counter() >= self.end
+        return self.clock.now >= self.end
 
     def wait(self):  # the driver's blocking host sync
-        time.sleep(max(0.0, self.end - time.perf_counter()))
+        self.clock.advance_to(self.end)
 
 
-def _in_flight(seconds, value=None, launches=4):
+def _in_flight(clock, seconds, value=None, launches=4):
     """A synthetic band of ``launches`` launches, ``seconds`` in all, then
     ``value``.  Like the port's drivers, each step first blocks until the
     band's previous launch is done, then issues the next and yields it."""
@@ -173,25 +208,25 @@ def _in_flight(seconds, value=None, launches=4):
     for _ in range(launches):
         if launch is not None:
             launch.wait()
-        launch = _Launch(seconds / launches)
+        launch = _Launch(clock, seconds / launches)
         yield launch
     launch.wait()
     return value
 
 
-def test_run_in_turns_overlaps_bands_and_raises():
+def test_run_in_turns_overlaps_bands_and_raises(clock):
     """Every device's band is in flight at once (four bands of 0.2 s and
     0.05 s in well under their 0.5 s sum), each completion time is its own
     although every step blocks on its band's previous launch (a fast band is
     not held in lockstep with a slow one), and a failing band raises."""
     delays = [0.2, 0.05, 0.2, 0.05]
-    t0 = time.perf_counter()
-    out, done = pdev.run_in_turns(CPU4, lambda i: _in_flight(delays[i], i))
-    assert out == [0, 1, 2, 3] and time.perf_counter() - t0 < 0.4
+    t0 = clock.perf_counter()
+    out, done = pdev.run_in_turns(CPU4, lambda i: _in_flight(clock, delays[i], i))
+    assert out == [0, 1, 2, 3] and clock.perf_counter() - t0 < 0.4
     assert done[1] < done[0] / 2 and done[3] < done[2] / 2
 
     def work(i):
-        yield from _in_flight(0.01)
+        yield from _in_flight(clock, 0.01)
         if i == 2:
             raise ValueError("band 2 failed")
         return i
@@ -317,18 +352,19 @@ def test_hetero_reference_banding_differs_but_statistically_matches():
     assert abs(accum.mean() - single.mean()) / single.mean() < 0.15
 
 
-def _patch_synthetic_devices(monkeypatch, renderer, per_row_s):
+def _patch_synthetic_devices(monkeypatch, clock, renderer, per_row_s):
     """Replace render_band_steps with a zero image in flight for
-    rows * per_row_s[device] seconds (the device found by its y0)."""
+    rows * per_row_s[device] seconds of the virtual clock (the device found
+    by its y0)."""
     def fake(*args, **kw):
         dev = renderer._offsets().index(int(kw["y0"]))
-        return _in_flight(int(kw["band_h"]) * per_row_s[dev],
+        return _in_flight(clock, int(kw["band_h"]) * per_row_s[dev],
                           torch.zeros((int(kw["band_h"]), renderer.config.width, 3)))
 
     monkeypatch.setattr(sharding, "render_band_steps", fake)
 
 
-def test_probe_is_per_device_not_serialized(monkeypatch):
+def test_probe_is_per_device_not_serialized(monkeypatch, clock):
     """A fast device listed after a slow one still reports a small busy
     time: each band's time ends with its own band, not with the bands
     before it nor in step with them, though each step blocks on its band's
@@ -336,17 +372,17 @@ def test_probe_is_per_device_not_serialized(monkeypatch):
     ray_trace.cpp:609-644)."""
     r = HeteroRenderer(_cfg(chips=2, height=48), scene=three_sphere_scene(),
                        devices=["cpu"] * 2)
-    _patch_synthetic_devices(monkeypatch, r, [4e-3, 1e-4])  # device 0 40x slower
+    _patch_synthetic_devices(monkeypatch, clock, r, [4e-3, 1e-4])  # device 0 40x slower
     _, _, per_dev = r.render_frame(SPP)
     assert per_dev[1] < per_dev[0] / 2
 
 
-def test_tuner_converges_on_2x_slow_device(monkeypatch):
+def test_tuner_converges_on_2x_slow_device(monkeypatch, clock):
     """Per-device probe -> tuner -> re-split moves toward the 2:1 split when
     device 1 is 2x slower per row."""
     r = HeteroRenderer(_cfg(chips=2, height=48), scene=three_sphere_scene(),
                        devices=["cpu"] * 2)
-    _patch_synthetic_devices(monkeypatch, r, [1e-3, 2e-3])
+    _patch_synthetic_devices(monkeypatch, clock, r, [1e-3, 2e-3])
     assert r.rows == [24, 24]
     for _ in range(60):
         r.tune_round(SPP, frames=1)
