@@ -7,8 +7,10 @@ and the repository's sources; it imports nothing of JAX.  Each phase prints
 one line and raises on failure, so any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the four CUDA kernels from ``raytrace_tpu_torch/csrc`` (one nvcc
-   per source, started together), and a PTX check that no fast-math
+2. build: every source of ``_build.SOURCES`` in ``raytrace_tpu_torch/csrc``
+   (the megakernel, the grid, paged and fused intersect kernels, and the
+   gather probe with its loop baseline; one nvcc per source, started
+   together), and a PTX check that no fast-math
    instruction (approximate sqrt/div, rsqrt, sin) reached any of them; the
    registers, spills and resident blocks per SM of the grid and fused
    intersect kernels' instances (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
@@ -102,10 +104,25 @@ one line and raises on failure, so any failure exits non-zero:
    executable (``--bogus`` warned about, exit 0) writes the same; the entry
    file's ``entry()`` band on the card == the same band on the CPU, and
    ``dryrun_multichip(4)`` over four bands of the card.
+8. gather: the lane-gather probe and its loop baseline
+   (``raytrace_tpu_torch.scripts.bench_gather``, the port of
+   ``scripts/bench_gather.py``) at the script's [16, 1024] table: for axis 1
+   and 0, random and per-lane indices, 1 and 2048 iterations, and for the
+   baseline, the kernel over one block per SM == the plain version on every
+   block's slice (0 columns differing, NaNs in the same places); times at
+   one block and at one block per SM against the bound and against the
+   shared-memory ceiling (32 words per clock per SM: 512 clocks per
+   [16, 1024] gather); then its entry point ``main()`` as a user runs it,
+   with the launch counts set to 0 just before it and read just after it
+   (both kernels must launch); and the grid and paged kernels'
+   ``gather_floor_frac``: the cell-record and winner-attribute values their
+   phase-3 launch loads (a lower count, from the plain versions' tally),
+   times the probe's ns per value over the card, over the launch's time.
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
-of phases 5, 6 and 7); the last line is ``{"ok": true, "device": {...}}``.
+of phases 5, 6 and 7, and for the gather probe of phase 8); the last line
+is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
 
@@ -387,6 +404,130 @@ def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
 
     path("production loop", "grid_megakernel_step", production)
     return totals
+
+
+def gather_probe(dev, smi, records, step_work) -> None:
+    """Phase 8: the gather probe and its baseline against their plain
+    versions on every block's slice, timed; the entry point as a user runs
+    it, its launches counted; the grid and paged kernels' gather floor.
+    Adds the two kernels' rows to ``records`` and ``gather_floor_frac`` to
+    the grid and paged rows."""
+    import torch
+
+    from raytrace_tpu_torch.scripts import bench_gather as bg
+
+    card = f"({smi})"
+    r_, t_, iters_max = bg.R, bg.T, bg.ITERS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", f"--id={dev.index}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    tab_np, idx_np = bg.inputs()
+    tab = torch.from_numpy(tab_np).to(dev)
+    idx = {k: torch.from_numpy(v).to(dev) for k, v in idx_np.items()}
+    values = sms * r_ * t_ * iters_max  # gathered (or scaled) values at one block per SM
+    moved = {"run": (2 + sms) * r_ * t_ * 4, "run_base": (1 + sms) * r_ * t_ * 4}
+    ceiling = r_ * t_ / 32  # clocks per [R, T] gather per SM at 32 words per clock
+
+    def check(label, kern, plain):
+        out = kern(blocks=sms, per_block=True)
+        ref = plain()
+        torch.cuda.synchronize()
+        n_bad, err = compare((out.permute(1, 0, 2).reshape(r_, sms * t_),),
+                             (ref.repeat(1, sms),))
+        nan_k, nan_p = int(out.isnan().sum()), int(ref.isnan().sum()) * sms
+        phase("gather", f"{label}: {sms} blocks x [{r_},{t_}], {n_bad} columns differ from "
+              f"the plain version, NaN {nan_k} (plain x {sms} blocks {nan_p}), max |diff| {err}")
+        if n_bad or nan_k != nan_p:
+            raise RuntimeError(f"{label}: {n_bad} columns differ, NaN {nan_k} vs {nan_p}")
+        return err
+
+    def timing(label, kern, plain, name, ops_per_value):
+        ms = {b: cuda_ms(lambda: kern(blocks=b), 5) for b in (1, sms)}
+        plain_ms = cuda_ms(plain, 2)
+        bound_ms, bound_by = bound(moved[name], ops_per_value * values)
+        ns = ms[1] * 1e6 / iters_max
+        phase("gather", f"{label} iters={iters_max}: 1 block {ms[1]:.4f} ms ({ns:.1f} ns, "
+              f"{ns * 1e-3 * mhz:.0f} clocks at {mhz:.0f} MHz, per iteration; "
+              f"shared-memory ceiling {ceiling:.0f} clocks = {ceiling / mhz * 1e3:.1f} ns), "
+              f"{sms} blocks {ms[sms]:.4f} ms ({ms[sms] * 1e6 / values:.6f} ns per value over "
+              f"the card); plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{moved[name]} B, {ops_per_value * values} ops) {card}")
+        return ms, plain_ms, bound_ms, bound_by
+
+    err = {"run": 0.0, "run_base": 0.0}
+    ms = {}
+    for axis in (1, 0):
+        for mode in bg.INDEX_MODES:
+            def kern(iters=iters_max, **kw):
+                return bg.run(tab, idx[mode], iters=iters, axis=axis, **kw)
+
+            def plain(iters=iters_max):
+                return bg.run_plain(tab, idx[mode], iters=iters, axis=axis)
+
+            label = f"run axis={axis} idx={mode}"
+            for iters in (1, iters_max):
+                err["run"] = max(err["run"], check(
+                    f"{label} iters={iters}", lambda **kw: kern(iters, **kw),
+                    lambda: plain(iters)))
+            ms[(axis, mode)] = timing(label, kern, plain, "run", 1)
+
+    def base(iters=iters_max, **kw):
+        return bg.run_base(tab, idx["rand"], iters=iters, **kw)
+
+    for iters in (1, iters_max):
+        err["run_base"] = max(err["run_base"], check(
+            f"run_base iters={iters}", lambda **kw: base(iters, **kw),
+            lambda: bg.run_base_plain(tab, idx["rand"], iters=iters)))
+    base_t = timing("run_base", base,
+                    lambda: bg.run_base_plain(tab, idx["rand"], iters=iters_max),
+                    "run_base", 2)
+
+    # the entry point as a user runs it, with its launches counted
+    wrappers = (bg.run, bg.run_base, bg.run_plain, bg.run_base_plain)
+    for w in wrappers:
+        w.launches = 0
+    bg.main([])
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    phase("gather", f"python -m raytrace_tpu_torch.scripts.bench_gather: launches {counts} "
+          f"(the plain versions: its own check at one iteration)")
+    if not (counts["run"] and counts["run_base"]):
+        raise RuntimeError(f"the gather entry point did not launch both kernels: {counts}")
+
+    extra = {f"axis{a}_{m}_ms": t[0][sms] for (a, m), t in ms.items()}
+    extra.update({f"axis{a}_{m}_1block_ms": t[0][1] for (a, m), t in ms.items()})
+    lane_ms, lane_plain, lane_bound, lane_by = ms[(1, "lane")]
+    records["bench_gather.run"] = dict(
+        name="bench_gather.run", route="cuda", source="raytrace_tpu_torch/csrc/bench_gather.cu",
+        replaces="scripts/bench_gather.py:38", launches=counts["run"],
+        max_abs_err=err["run"], ms=lane_ms[sms], plain_ms=lane_plain, bound_ms=lane_bound,
+        bound_by=lane_by, library_ms=None, blocks=sms, iters=iters_max, **extra)
+    records["bench_gather.run_base"] = dict(
+        name="bench_gather.run_base", route="cuda",
+        source="raytrace_tpu_torch/csrc/bench_gather.cu",
+        replaces="scripts/bench_gather.py:61", launches=counts["run_base"],
+        max_abs_err=err["run_base"], ms=base_t[0][sms], plain_ms=base_t[1],
+        bound_ms=base_t[2], bound_by=base_t[3], library_ms=None, blocks=sms,
+        iters=iters_max, one_block_ms=base_t[0][1])
+
+    # the gather floor of the main path's wavefront kernels: the cell-record
+    # and winner-attribute values of their phase-3 launch (the plain
+    # versions' ``table_values`` tally: a lower count of the kernels' on-chip
+    # reads -- the grid kernel's globals come from shared memory, the paged
+    # kernel's globals and id scans are left out) at the probe's whole-card
+    # ns per value (per-lane indices, axis 1), over the launch's measured
+    # time.  The kernels read L1 and L2 through __ldg, the probe shared
+    # memory, so this is a floor, not the kernels' cost.
+    ns_value = lane_ms[sms] * 1e6 / values
+    for name in ("grid_megakernel_step", "paged_megakernel_step"):
+        n_values = step_work[name]["table_values"]
+        frac = n_values * ns_value / (records[name]["ms"] * 1e6)
+        records[name]["gather_floor_frac"] = frac
+        phase("gather", f"{name}: gather_floor_frac {frac:.4f} = {n_values} table values "
+              f"(a lower count) x {ns_value:.6f} ns per value over the card / "
+              f"{records[name]['ms']:.3f} ms per launch {card}")
 
 
 def decode_png(path):
@@ -681,6 +822,7 @@ def main() -> int:
         raise RuntimeError("the 100k-sphere field built no paged tables")
     dense_skip = trace.tmax_never_binds(dense_scene, cam)
     records = {}
+    step_work = {}  # "name label": the plain version's exact-mode work tally
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -755,6 +897,7 @@ def main() -> int:
                          + nbytes(scal, vpr, *tables))
                 bound_ms, bound_by, timing = step_timing(ms, plain_ms, work, moved)
                 res = ((f1, u1), ms, plain_ms, bound_ms, bound_by)
+                step_work[f"{name}{label}"] = work
             pix = f", {acc_bad} of {geom['p_total']} accumulator pixels differ" if accum else ""
             odd_txt = f", {n_odd} {odd}" if check else ""
             phase("kernel", f"{name}{label} {mode}: {n} lanes of {geom['n_lanes']} (M={m}), "
@@ -1207,6 +1350,9 @@ def main() -> int:
         if n == 0:
             raise RuntimeError(f"{name} did not launch on the main path")
         records[name]["launches"] = n
+
+    # ---- 8. the gather probe and the card's gather floor ----------------------
+    gather_probe(dev, smi, records, step_work)
 
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -12,6 +12,11 @@ kernels for ``sm_90a`` (``csrc/``, built with nvcc on first use by
 - ``ops/pallas_intersect.py``: the fused closest hit + attribute fetch of
   the ``pallas`` spec backend.
 
+Beside the render path, ``scripts/bench_gather.py`` ports the JAX package's
+gather microbenchmark (``scripts/bench_gather.py``: a lane gather from
+on-chip memory and its loop baseline) onto the CUDA kernels of
+``csrc/bench_gather.cu``.
+
 The entry points render on the GPU and raise without one unless given
 ``device="cpu"``.
 

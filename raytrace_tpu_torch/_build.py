@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels (nvcc -> one shared library -> ctypes).
 
-The sources in ``csrc/`` have a plain C interface and include no PyTorch
-headers, so nvcc builds each in seconds; one nvcc process per source (and
+The sources are ``SOURCES`` in ``csrc/``: the brute-force megakernel, the
+grid and paged wavefront kernels, the fused intersect kernel and the
+lane-gather probe with its loop baseline (``bench_gather.cu``).  They have a
+plain C interface and include no PyTorch headers, so nvcc builds each in seconds; one nvcc process per source (and
 one per PTX file) is started at once, and the objects are then linked into
 one library.  The library lands in ``build/kernels/<hash>/`` at the
 repository root (gitignored), keyed by a hash of the sources and flags; the
@@ -45,7 +47,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO = Path(__file__).resolve().parent.parent
 BUILD_ROOT = REPO / "build" / "kernels"
-SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu")
+SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu",
+           "bench_gather.cu")
 HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
@@ -71,6 +74,10 @@ _SIGNATURES = {
     "rt_intersect_shade": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     # device; out [4]
     "rt_intersect_occupancy": [_INT, _VOIDP],
+    # tab, idx, out; iters, axis, blocks, device; stream
+    "rt_gather_bench": [_VOIDP] * 3 + [_INT] * 4 + [_VOIDP],
+    # tab, out; iters, blocks, device; stream
+    "rt_gather_base": [_VOIDP] * 2 + [_INT] * 3 + [_VOIDP],
 }
 
 

@@ -344,6 +344,8 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
             # non-marching lanes may hold a stale cell: clamp the fetch index
             # (their values are masked by ``marching`` below)
             rec = grid.cells[cid.clamp(0, n_cells - 1)].T  # [stride, n]
+            if work is not None:  # the kernel loads a cell's n_slots float4 slots
+                count_work(work, table_values=marching.sum() * 4 * n_slots)
             for s in range(n_slots):
                 if five:
                     s_cx, s_cy, s_cz, s_kc = rec[4 * s : 4 * s + 4]
@@ -356,6 +358,8 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
                 tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
                                 s_cx, s_cy, s_cz, s_kc, skip_tmax=skip_tmax, big=big)
                 upd = marching & (tc < t_b)
+                if work is not None and five:  # the winning slot's id
+                    count_work(work, table_values=upd.sum())
                 t_b = torch.where(upd, tc, t_b)
                 bkey = torch.where(upd, sid, bkey)
             t_exit = torch.minimum(t_nx, t_nz)
@@ -371,8 +375,9 @@ def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
 
         seg_done = alive & ~marching
         hit = t_b < big
-        if work is not None:
-            count_work(work, segments=seg_done.sum())
+        if work is not None:  # a segment's end loads the winner's attrs (and tattrs)
+            count_work(work, segments=seg_done.sum(),
+                       table_values=seg_done.sum() * (8 if grid.tattrs is None else 12))
 
         # ---- winner resolution: bkey (sphere id) -> attrs -------------------
         is_direct = bkey >= TAG

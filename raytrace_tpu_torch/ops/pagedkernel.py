@@ -280,6 +280,8 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         pkey = (sxm * 32 + szm).to(torch.float32) * 512.0
         upd_any = torch.zeros_like(marching)
         wslot = torch.zeros_like(cell)
+        if work is not None:  # the kernel loads cx, (cy,) cz, kc of each slot
+            count_work(work, table_values=marching.sum() * n_slots * (4 if five else 3))
         for s in range(n_slots):
             b0 = w * s
             if work is not None:
@@ -296,6 +298,8 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
             upd_any = upd_any | upd
 
         # winner improved in this cell: its lid, then its carried attrs
+        if work is not None:
+            count_work(work, table_values=upd_any.sum() * (1 + na))
         lid_w = paged.lids[page, wslot, fc]
         bkey = torch.where(upd_any, pkey + lid_w, bkey)
         lid = torch.where(upd_any, bkey, 0.0).to(torch.int64) & 511
@@ -322,6 +326,8 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
 
         # ---- winner resolution: globals from gtab, grid winners carried ----
         is_direct = bkey >= _TAG
+        if work is not None:  # a global winner's 12 attributes (its id scan left out)
+            count_work(work, table_values=(seg_done & is_direct).sum() * 12)
         bidx_f = torch.where(is_direct, bkey - _TAG, -1.0)
         cols = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13)
         gsel = [gtab[0, c].expand_as(t_b) for c in cols]

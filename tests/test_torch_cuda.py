@@ -20,7 +20,10 @@ for the paged kernel all four instances of its template (varied-height and
 textured page layouts) on the driver's sorted and compacted lanes, its
 home-order accumulator and the sort key it emits; for the fused intersect
 kernel the valid-prefix scan, a table of several shared-memory chunks and
-one whose valid rows are not a prefix.
+one whose valid rows are not a prefix; for the gather probe and its loop
+baseline (``scripts/bench_gather.py``'s two kernels) every block's slice,
+at one block per SM and at three, on indices that are negative or wrap
+int32 too.
 """
 
 import pytest
@@ -31,6 +34,7 @@ from raytrace_tpu_torch.models.scene import (CHECKERED, generate_random_scene,
 from raytrace_tpu_torch.ops import (gridkernel, intersect, megakernel, pagedkernel,
                                     pallas_intersect, trace)
 from raytrace_tpu_torch.runtime.renderer import reference_camera
+from raytrace_tpu_torch.scripts import bench_gather
 
 RR = (1, 16, 0.05)
 
@@ -332,3 +336,57 @@ def test_bands_on_one_card_equal_the_whole(cuda, backend):
     one = Renderer(cfg, scene=scene, device=cuda).render_call(2).cpu().numpy()
     assert (hr.render_frame(2)[0] == one).all()
     assert plain.launches == before
+
+
+def _gather_inputs(mode, dev):
+    """The probe's seeded table and ``mode``'s indices ("rand", "lane", or
+    "wide": the whole int32 range, some at the top so that idx + i wraps)."""
+    import numpy as np
+
+    tab, idx = bench_gather.inputs()
+    if mode == "wide":
+        rng = np.random.default_rng(5)
+        shape = (bench_gather.R, bench_gather.T)
+        w = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+        w[:, ::7] = np.iinfo(np.int32).max - rng.integers(0, 5, size=(shape[0], 147))
+        idx = {"wide": w}
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(idx[mode]).to(dev)
+
+
+def _blocks_equal(out, ref):
+    same = (out == ref[None]) | (torch.isnan(out) & torch.isnan(ref[None]))
+    return bool(same.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rand", "lane", "wide"])
+@pytest.mark.parametrize("axis", [1, 0])
+def test_gather_probe_matches_plain(cuda, axis, mode):
+    """The gather kernel == its plain version on every block's slice (one
+    block per SM, and three) at 1, 7 and 2048 iterations; one launch counted
+    per call."""
+    tab, idx = _gather_inputs(mode, cuda)
+    for iters in (1, 7, bench_gather.ITERS):
+        ref = bench_gather.run_plain(tab, idx, iters=iters, axis=axis)
+        for blocks in (None, 3):
+            before = bench_gather.run.launches
+            out = bench_gather.run(tab, idx, iters=iters, axis=axis, blocks=blocks,
+                                   per_block=True)
+            torch.cuda.synchronize()
+            assert bench_gather.run.launches == before + 1
+            assert out.shape[0] == (blocks or torch.cuda.get_device_properties(
+                cuda).multi_processor_count)
+            assert _blocks_equal(out, ref)
+        assert torch.equal(bench_gather.run(tab, idx, iters=iters, axis=axis).isnan(),
+                           ref.isnan())
+
+
+@pytest.mark.gpu
+def test_gather_baseline_matches_plain(cuda):
+    tab, idx = _gather_inputs("rand", cuda)
+    for iters in (1, 7, bench_gather.ITERS):
+        ref = bench_gather.run_base_plain(tab, idx, iters=iters)
+        for blocks in (None, 3):
+            out = bench_gather.run_base(tab, idx, iters=iters, blocks=blocks, per_block=True)
+            torch.cuda.synchronize()
+            assert _blocks_equal(out, ref)
