@@ -106,18 +106,28 @@ one line and raises on failure, so any failure exits non-zero:
    ``dryrun_multichip(4)`` over four bands of the card.
 8. gather: the lane-gather probe and its loop baseline
    (``raytrace_tpu_torch.scripts.bench_gather``, the port of
-   ``scripts/bench_gather.py``) at the script's [16, 1024] table: for axis 1
-   and 0, random and per-lane indices, 1 and 2048 iterations, and for the
-   baseline, the kernel over one block per SM == the plain version on every
-   block's slice (0 columns differing, NaNs in the same places); times at
-   one block and at one block per SM against the bound and against the
-   shared-memory ceiling (32 words per clock per SM: 512 clocks per
-   [16, 1024] gather); then its entry point ``main()`` as a user runs it,
-   with the launch counts set to 0 just before it and read just after it
-   (both kernels must launch); and the grid and paged kernels'
-   ``gather_floor_frac``: the cell-record and winner-attribute values their
-   phase-3 launch loads (a lower count, from the plain versions' tally),
-   times the probe's ns per value over the card, over the launch's time.
+   ``scripts/bench_gather.py``) at the script's [16, 1024] table: the
+   registers and spills of both gather instances (ptxas) and their loops
+   with adds (``cuobjdump -sass``: instructions, adds and shared loads);
+   for axis 1 and 0 and every index case of ``CHECK_MODES`` (random and
+   per-lane indices, wrapping ones per entry and per lane, a launch whose
+   warps take both axis-1 paths, and per-lane indices on the row path),
+   at 1, 7 and 2048 iterations, and for the baseline, the kernel over one
+   block per SM == the plain version on every block's slice (0 columns
+   differing, NaNs in the same places); times at one block and at one
+   block per SM, the clocks an iteration at the card's maximum SM clock
+   against the shared-memory bound (one 32-word wavefront per clock per
+   SM: 512 per [16, 1024] gather) and against the wavefronts that
+   ``shared_wavefronts`` counts for the case under both 128-bit rules;
+   then its entry point ``main()`` as a user runs it, with the launch
+   counts set to 0 just before it and read just after it (both kernels
+   must launch); and the grid and paged kernels' ``gather_floor_frac``:
+   the cell-record and winner-attribute values their phase-3 launch loads
+   (a lower count, from the plain versions' tally), times the probe's ns
+   per value over the card (per-lane indices; beside it the row path's on
+   the same indices), over the launch's time.  The probe's ``bound_ms`` is
+   the shared-memory bound (``bound_by`` "bytes": 128 B a wavefront), or
+   the launch's device-memory bytes and fp32 operations where larger.
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
@@ -408,12 +418,17 @@ def bands_and_frames(dev, smi, launches, counters, plain_names) -> dict:
 
 def gather_probe(dev, smi, records, step_work) -> None:
     """Phase 8: the gather probe and its baseline against their plain
-    versions on every block's slice, timed; the entry point as a user runs
-    it, its launches counted; the grid and paged kernels' gather floor.
-    Adds the two kernels' rows to ``records`` and ``gather_floor_frac`` to
-    the grid and paged rows."""
+    versions on every block's slice, for every index case of
+    ``bench_gather.CHECK_MODES`` (both axis-1 paths, alone and in one
+    launch); timed against the shared-memory bound and the wavefronts that
+    ``bench_gather.shared_wavefronts`` counts for each case; the kernels'
+    registers, spills and compiled loops; the entry point as a user runs it,
+    its launches counted; the grid and paged kernels' gather floor.  Adds
+    the two kernels' rows to ``records`` and ``gather_floor_frac`` to the
+    grid and paged rows."""
     import torch
 
+    from raytrace_tpu_torch import _build
     from raytrace_tpu_torch.scripts import bench_gather as bg
 
     card = f"({smi})"
@@ -423,43 +438,56 @@ def gather_probe(dev, smi, records, step_work) -> None:
         ["nvidia-smi", f"--id={dev.index}", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
-    tab_np, idx_np = bg.inputs()
+    tab_np, _ = bg.inputs()
     tab = torch.from_numpy(tab_np).to(dev)
+    idx_np = {m: bg.check_inputs(m)[1] for m in bg.CHECK_MODES}
     idx = {k: torch.from_numpy(v).to(dev) for k, v in idx_np.items()}
     values = sms * r_ * t_ * iters_max  # gathered (or scaled) values at one block per SM
     moved = {"run": (2 + sms) * r_ * t_ * 4, "run_base": (1 + sms) * r_ * t_ * 4}
-    ceiling = r_ * t_ / 32  # clocks per [R, T] gather per SM at 32 words per clock
+    # shared memory serves one wavefront (32 words) per clock per SM: the
+    # least clocks per [R, T] gather per SM, and the least ms of a launch at
+    # the card's maximum SM clock
+    ideal = r_ * t_ / 32
+    smem_ms = ideal * iters_max / (mhz * 1e3)
+
+    # registers and spills (ptxas) and the compiled loops (cuobjdump -sass)
+    info = _build.build()
+    regs = _build.ptxas_report(info["log"], "gather_bench_kernel")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    loops = bg.sass_loops(subprocess.run([cuobjdump, "-sass", str(info["lib"])],
+                                         capture_output=True, text=True,
+                                         check=True).stdout)
+    compiled = {}
+    for fn, axis in ((f, 1 if "ILi1E" in f else 0) for f in regs):
+        hot = [dict(instructions=lp["instructions"], fadd=lp["ops"].get("FADD", 0),
+                    lds={k: v for k, v in lp["ops"].items() if k.startswith("LDS")})
+               for lp in loops.get(fn, []) if lp["ops"].get("FADD")]
+        compiled[f"axis{axis}"] = dict(regs[fn], loops=hot)
+        phase("gather", f"gather_bench_kernel<{axis}>: {regs[fn]['registers']} registers, "
+              f"{regs[fn]['spill_stores']} B spill stores; loops with adds "
+              f"(instructions, FADD, shared loads, instructions per FADD): "
+              + "; ".join(f"{h['instructions']}, {h['fadd']}, {h['lds']}, "
+                          f"{h['instructions'] / h['fadd']:.2f}" for h in hot))
+    if set(compiled) != {"axis0", "axis1"}:
+        raise RuntimeError(f"ptxas reported gather kernel instances {list(regs)}")
 
     def check(label, kern, plain):
+        """(columns differing, NaN in the kernel, NaN in the plain version
+        x blocks, max |diff|) over every block's slice."""
         out = kern(blocks=sms, per_block=True)
         ref = plain()
         torch.cuda.synchronize()
         n_bad, err = compare((out.permute(1, 0, 2).reshape(r_, sms * t_),),
                              (ref.repeat(1, sms),))
         nan_k, nan_p = int(out.isnan().sum()), int(ref.isnan().sum()) * sms
-        phase("gather", f"{label}: {sms} blocks x [{r_},{t_}], {n_bad} columns differ from "
-              f"the plain version, NaN {nan_k} (plain x {sms} blocks {nan_p}), max |diff| {err}")
         if n_bad or nan_k != nan_p:
             raise RuntimeError(f"{label}: {n_bad} columns differ, NaN {nan_k} vs {nan_p}")
-        return err
-
-    def timing(label, kern, plain, name, ops_per_value):
-        ms = {b: cuda_ms(lambda: kern(blocks=b), 5) for b in (1, sms)}
-        plain_ms = cuda_ms(plain, 2)
-        bound_ms, bound_by = bound(moved[name], ops_per_value * values)
-        ns = ms[1] * 1e6 / iters_max
-        phase("gather", f"{label} iters={iters_max}: 1 block {ms[1]:.4f} ms ({ns:.1f} ns, "
-              f"{ns * 1e-3 * mhz:.0f} clocks at {mhz:.0f} MHz, per iteration; "
-              f"shared-memory ceiling {ceiling:.0f} clocks = {ceiling / mhz * 1e3:.1f} ns), "
-              f"{sms} blocks {ms[sms]:.4f} ms ({ms[sms] * 1e6 / values:.6f} ns per value over "
-              f"the card); plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{moved[name]} B, {ops_per_value * values} ops) {card}")
-        return ms, plain_ms, bound_ms, bound_by
+        return n_bad, nan_k, nan_p, err
 
     err = {"run": 0.0, "run_base": 0.0}
-    ms = {}
+    ms, plain_ms, counted = {}, {}, {}
     for axis in (1, 0):
-        for mode in bg.INDEX_MODES:
+        for mode in bg.CHECK_MODES:
             def kern(iters=iters_max, **kw):
                 return bg.run(tab, idx[mode], iters=iters, axis=axis, **kw)
 
@@ -467,22 +495,50 @@ def gather_probe(dev, smi, records, step_work) -> None:
                 return bg.run_plain(tab, idx[mode], iters=iters, axis=axis)
 
             label = f"run axis={axis} idx={mode}"
-            for iters in (1, iters_max):
-                err["run"] = max(err["run"], check(
-                    f"{label} iters={iters}", lambda **kw: kern(iters, **kw),
-                    lambda: plain(iters)))
-            ms[(axis, mode)] = timing(label, kern, plain, "run", 1)
+            res = {iters: check(f"{label} iters={iters}", lambda **kw: kern(iters, **kw),
+                                lambda: plain(iters))
+                   for iters in (1, 7, iters_max)}
+            err["run"] = max([err["run"]] + [r[3] for r in res.values()])
+            ms[(axis, mode)] = {b: cuda_ms(lambda: kern(blocks=b), 5) for b in (1, sms)}
+            if mode in bg.INDEX_MODES:
+                plain_ms[(axis, mode)] = cuda_ms(plain, 2)
+            n = counted[(axis, mode)] = bg.shared_wavefronts(idx_np[mode], axis)
+            t1, tn = ms[(axis, mode)][1], ms[(axis, mode)][sms]
+            clocks = t1 * 1e-3 / iters_max * mhz * 1e6
+            n.update(clocks=clocks, share_of_512=ideal / clocks,
+                     share_of_count_warp=n["warp"] / clocks,
+                     share_of_count_quarter=n["quarter"] / clocks)
+            phase("gather", f"{label}: {sms} blocks x [{r_},{t_}] == plain at iterations 1, 7, "
+                  f"{iters_max} (0 columns differ; NaN "
+                  f"{', '.join(f'{r[1]}/{r[2]}' for r in res.values())}; max |diff| "
+                  f"{max(r[3] for r in res.values())}); {n['record_warps']} of "
+                  f"{t_ // bg.WARP} warps on the record path; 1 block {t1:.4f} ms = "
+                  f"{clocks:.0f} clocks an iteration at {mhz:.0f} MHz, {sms} blocks "
+                  f"{tn:.4f} ms ({tn * 1e6 / values:.6f} ns per value over the card); "
+                  f"wavefronts counted {n['warp']:g} (warp rule) / {n['quarter']:g} "
+                  f"(quarter rule), reached {n['share_of_count_warp']:.3f} / "
+                  f"{n['share_of_count_quarter']:.3f}, of the {ideal:.0f}-wavefront bound "
+                  f"{n['share_of_512']:.3f}"
+                  + (f"; plain {plain_ms[(axis, mode)]:.3f} ms" if mode in bg.INDEX_MODES
+                     else "") + f" {card}")
 
     def base(iters=iters_max, **kw):
         return bg.run_base(tab, idx["rand"], iters=iters, **kw)
 
-    for iters in (1, iters_max):
+    def base_plain(iters=iters_max):
+        return bg.run_base_plain(tab, idx["rand"], iters=iters)
+
+    for iters in (1, 7, iters_max):
         err["run_base"] = max(err["run_base"], check(
             f"run_base iters={iters}", lambda **kw: base(iters, **kw),
-            lambda: bg.run_base_plain(tab, idx["rand"], iters=iters)))
-    base_t = timing("run_base", base,
-                    lambda: bg.run_base_plain(tab, idx["rand"], iters=iters_max),
-                    "run_base", 2)
+            lambda: base_plain(iters))[3])
+    base_ms = {b: cuda_ms(lambda: base(blocks=b), 5) for b in (1, sms)}
+    base_plain_ms = cuda_ms(base_plain, 2)
+    base_bound = bound(moved["run_base"], 2 * values)
+    phase("gather", f"run_base: == plain at iterations 1, 7, {iters_max}; 1 block "
+          f"{base_ms[1]:.4f} ms ({base_ms[1] * 1e-3 / iters_max * mhz * 1e6:.0f} clocks an "
+          f"iteration), {sms} blocks {base_ms[sms]:.4f} ms; plain {base_plain_ms:.3f} ms; "
+          f"bound {base_bound[0]:.4f} ms ({base_bound[1]}) {card}")
 
     # the entry point as a user runs it, with its launches counted
     wrappers = (bg.run, bg.run_base, bg.run_plain, bg.run_base_plain)
@@ -496,21 +552,34 @@ def gather_probe(dev, smi, records, step_work) -> None:
     if not (counts["run"] and counts["run_base"]):
         raise RuntimeError(f"the gather entry point did not launch both kernels: {counts}")
 
-    extra = {f"axis{a}_{m}_ms": t[0][sms] for (a, m), t in ms.items()}
-    extra.update({f"axis{a}_{m}_1block_ms": t[0][1] for (a, m), t in ms.items()})
-    lane_ms, lane_plain, lane_bound, lane_by = ms[(1, "lane")]
+    # the probe's bound: shared memory's 512 wavefronts per iteration per SM
+    # at the card's maximum SM clock, or the bytes and operations of the
+    # launch at device memory's and fp32's peaks, whichever is larger
+    hbm_ops_ms, hbm_ops_by = bound(moved["run"], values)
+    run_bound = max(smem_ms, hbm_ops_ms)
+    extra = {f"axis{a}_{m}_ms": t[sms] for (a, m), t in ms.items()}
+    extra.update({f"axis{a}_{m}_1block_ms": t[1] for (a, m), t in ms.items()})
     records["bench_gather.run"] = dict(
         name="bench_gather.run", route="cuda", source="raytrace_tpu_torch/csrc/bench_gather.cu",
         replaces="scripts/bench_gather.py:38", launches=counts["run"],
-        max_abs_err=err["run"], ms=lane_ms[sms], plain_ms=lane_plain, bound_ms=lane_bound,
-        bound_by=lane_by, library_ms=None, blocks=sms, iters=iters_max, **extra)
+        max_abs_err=err["run"], ms=ms[(1, "lane")][sms], plain_ms=plain_ms[(1, "lane")],
+        bound_ms=run_bound, bound_by="bytes" if run_bound == smem_ms else hbm_ops_by,
+        bound_note=(f"shared memory: {ideal:.0f} wavefronts of 128 B per iteration per SM "
+                    f"at {mhz:.0f} MHz; device memory and fp32 operations: "
+                    f"{hbm_ops_ms:.4f} ms ({hbm_ops_by})"),
+        library_ms=None, blocks=sms, iters=iters_max, clocks_max_sm_mhz=mhz,
+        wavefronts={f"axis{a}_{m}": n for (a, m), n in counted.items()},
+        compiled=compiled, **extra)
     records["bench_gather.run_base"] = dict(
         name="bench_gather.run_base", route="cuda",
         source="raytrace_tpu_torch/csrc/bench_gather.cu",
         replaces="scripts/bench_gather.py:61", launches=counts["run_base"],
-        max_abs_err=err["run_base"], ms=base_t[0][sms], plain_ms=base_t[1],
-        bound_ms=base_t[2], bound_by=base_t[3], library_ms=None, blocks=sms,
-        iters=iters_max, one_block_ms=base_t[0][1])
+        max_abs_err=err["run_base"], ms=base_ms[sms], plain_ms=base_plain_ms,
+        bound_ms=base_bound[0], bound_by=base_bound[1], library_ms=None, blocks=sms,
+        iters=iters_max, one_block_ms=base_ms[1])
+    phase("gather", f"bench_gather.run: bound {run_bound:.4f} ms "
+          f"({records['bench_gather.run']['bound_note']}); per-lane indices "
+          f"{ms[(1, 'lane')][sms]:.4f} ms = {run_bound / ms[(1, 'lane')][sms]:.3f} of it {card}")
 
     # the gather floor of the main path's wavefront kernels: the cell-record
     # and winner-attribute values of their phase-3 launch (the plain
@@ -518,16 +587,19 @@ def gather_probe(dev, smi, records, step_work) -> None:
     # reads -- the grid kernel's globals come from shared memory, the paged
     # kernel's globals and id scans are left out) at the probe's whole-card
     # ns per value (per-lane indices, axis 1), over the launch's measured
-    # time.  The kernels read L1 and L2 through __ldg, the probe shared
-    # memory, so this is a floor, not the kernels' cost.
-    ns_value = lane_ms[sms] * 1e6 / values
+    # time; beside it the same at the row path's rate on those indices
+    # ("lane-row").  The kernels read L1 and L2 through __ldg, the probe
+    # shared memory, so this is a floor, not the kernels' cost.
+    ns_value = {m: ms[(1, m)][sms] * 1e6 / values for m in ("lane", "lane-row")}
     for name in ("grid_megakernel_step", "paged_megakernel_step"):
         n_values = step_work[name]["table_values"]
-        frac = n_values * ns_value / (records[name]["ms"] * 1e6)
-        records[name]["gather_floor_frac"] = frac
-        phase("gather", f"{name}: gather_floor_frac {frac:.4f} = {n_values} table values "
-              f"(a lower count) x {ns_value:.6f} ns per value over the card / "
-              f"{records[name]['ms']:.3f} ms per launch {card}")
+        frac = {m: n_values * v / (records[name]["ms"] * 1e6) for m, v in ns_value.items()}
+        records[name]["gather_floor_frac"] = frac["lane"]
+        records[name]["gather_floor_frac_row_path"] = frac["lane-row"]
+        phase("gather", f"{name}: gather_floor_frac {frac['lane']:.4f} = {n_values} table "
+              f"values (a lower count) x {ns_value['lane']:.6f} ns per value over the card / "
+              f"{records[name]['ms']:.3f} ms per launch; at the row path's "
+              f"{ns_value['lane-row']:.6f} ns per value {frac['lane-row']:.4f} {card}")
 
 
 def decode_png(path):

@@ -18,12 +18,22 @@ and [16, 1024] i32 indices, summed over ``iters`` iterations in order from 0:
   which isolates the loop's own cost (``idx`` is taken and not read).
 
 ``mod`` is floor modulo, as ``%`` is on JAX's ints, so a negative index
-gives what JAX gives.  The TPU program had the whole chip; here each CUDA
-block computes the whole problem into its own slice of a [blocks, R, T]
-output, so one block measures one SM and one block per SM the card.  ``run``
-and ``run_base`` launch the kernels for CUDA tensors and run the plain torch
-versions ``run_plain`` and ``run_base_plain`` for CPU tensors; each counts
-its launches in its ``launches`` attribute.
+gives what JAX gives.  On axis 1 the kernel has two paths, chosen per warp
+on the card: a warp whose lanes each have one index for all R rows reads
+each lane's record (the column tab[:, j]) from a record-major copy placed
+by ``record_slot``, four 128-bit loads an iteration in the order of
+``record_quad``; any other warp reads one word per row from the row-major
+copy.  ``shared_wavefronts`` counts the shared-memory wavefronts that the
+kernel's loads need for given indices, the least time the probe can take
+on an SM; ``CHECK_MODES`` and ``check_inputs`` are the index cases that
+hold the kernel against its plain version (the script's two, and
+wrapping, broadcast-wrapping, mixed-path and row-path per-lane indices).
+The TPU program had the whole chip; here each CUDA block computes the
+whole problem into its own slice of a [blocks, R, T] output, so one block
+measures one SM and one block per SM the card.  ``run`` and ``run_base``
+launch the kernels for CUDA tensors and run the plain torch versions
+``run_plain`` and ``run_base_plain`` for CPU tensors; each counts its
+launches in its ``launches`` attribute.
 
 Run ``python -m raytrace_tpu_torch.scripts.bench_gather [--device cpu]
 [--iters N] [--blocks B]``: on the GPU by default (it raises without one
@@ -38,9 +48,11 @@ CPU the times are the plain versions' on the host clock.
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import subprocess
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -53,6 +65,11 @@ ITERS = 2048
 BASE_SCALE = 1.0000001  # rounded to f32, as jnp.float32(1.0000001) is
 REPS = 5  # timed launches (median) after one warm-up
 INDEX_MODES = ("rand", "lane")
+CHECK_MODES = INDEX_MODES + ("wide", "wide-lane", "mixed", "lane-row")
+WARP = 32
+QUADS = R // 4  # 16-byte slots of one record (rows 4q .. 4q + 3)
+LAYOUTS = ("row", "record", "swizzled", "paired")
+_COUNT_CHUNK = 128  # iterations counted at once (bounds the counter's memory)
 
 
 def inputs():
@@ -65,6 +82,200 @@ def inputs():
     idx_lane = np.broadcast_to(
         rng.integers(0, T, size=(1, T)).astype(np.int32), (R, T)).copy()
     return tab, {"rand": idx0, "lane": idx_lane}
+
+
+def _wrapping(rng, shape):
+    """int32 indices over the whole range, every seventh column near the top
+    so that ``idx + i`` wraps."""
+    w = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    w[:, ::7] = np.iinfo(np.int32).max - rng.integers(0, 5, size=(shape[0], len(range(0, T, 7))))
+    return w
+
+
+def check_inputs(mode):
+    """(tab, idx) in numpy for one of ``CHECK_MODES``: the script's "rand" and
+    "lane"; "wide", wrapping indices per entry; "wide-lane", wrapping
+    indices per lane broadcast over the rows; "mixed", the per-lane indices
+    in even warps and the random ones in odd warps, except that lane 5 of
+    warp 2 differs from its other rows in row 9, so that its warp takes the
+    row path; "lane-row", the per-lane indices with lane 0 of every warp
+    one more in row 15, so that every warp takes the row path."""
+    tab, idx = inputs()
+    if mode in INDEX_MODES:
+        return tab, idx[mode]
+    if mode == "wide":
+        return tab, _wrapping(np.random.default_rng(5), (R, T))
+    if mode == "wide-lane":
+        return tab, np.broadcast_to(_wrapping(np.random.default_rng(6), (1, T)), (R, T)).copy()
+    if mode == "mixed":
+        odd = (np.arange(T) // WARP) % 2 == 1
+        mixed = np.where(odd, idx["rand"], idx["lane"])
+        mixed[9, 2 * WARP + 5] = (mixed[9, 2 * WARP + 5] + 1) % T
+        return tab, mixed
+    if mode == "lane-row":
+        lane_row = idx["lane"].copy()
+        lane_row[R - 1, ::WARP] = (lane_row[R - 1, ::WARP] + 1) % T
+        return tab, lane_row
+    raise ValueError(f"index mode {mode!r}: want one of {CHECK_MODES}")
+
+
+def record_slot(j, q, lane):
+    """The 16-byte slot of quad ``q`` (rows 4q .. 4q + 3) of record ``j``
+    (the column tab[:, j]) that lane ``lane`` reads in the kernel's
+    record-major copy; ints or numpy arrays.  Record j fills the 128-byte
+    line j twice, once in each half (copy 0 in slots 0-3, copy 1 in slots
+    4-7, quad q in slot q of its half), and a lane reads copy
+    (lane >> 2) & 1: lanes 0-3 of a quarter-warp read the bank quads 0-3,
+    lanes 4-7 the bank quads 4-7.  ``record_slot`` in
+    ``csrc/bench_gather.cu`` mirrors it."""
+    return 8 * np.asarray(j) + 4 * ((np.asarray(lane) >> 2) & 1) + q
+
+
+def record_quad(k, lane):
+    """The quad that lane ``lane`` loads at step ``k`` (0 .. 3) of an
+    iteration: (k + lane) & 3, so that lanes 0-3 of a quarter-warp, which
+    read one half of their lines, load four different quads, one bank quad
+    each, whatever their records.  ``record_quad`` in
+    ``csrc/bench_gather.cu`` mirrors it."""
+    return (k + np.asarray(lane)) & 3
+
+
+def _xor_slot(j, q):
+    """A record-major layout with one copy, for ``shared_wavefronts``'s
+    "swizzled" layout: two records a 128-byte line, the slot within the
+    line, (j & 1) * 4 + q, XORed with the line's low three bits."""
+    j = np.asarray(j)
+    line = j >> 1
+    return line * 8 + ((((j & 1) << 2) | q) ^ (line & 7))
+
+
+def _busiest(addr, banks):
+    """The most distinct addresses on one bank, for each group of lanes on
+    the last axis of ``addr`` (a bank is ``addr % banks``)."""
+    a = np.sort(addr.reshape(-1, addr.shape[-1]), axis=1)
+    first = np.ones(a.shape, bool)
+    first[:, 1:] = a[:, 1:] != a[:, :-1]
+    key = np.arange(a.shape[0])[:, None] * banks + a % banks
+    per_bank = np.bincount(key[first], minlength=a.shape[0] * banks)
+    return per_bank.reshape(-1, banks).max(axis=1).reshape(addr.shape[:-1])
+
+
+def warp_wavefronts(addr, width=1):
+    """(warp rule, quarter rule) wavefronts of warp loads: ``addr`` [..., 32]
+    holds each lane's address, in 4-byte words (``width`` 1, a 32-bit load)
+    or in 16-byte slots (``width`` 4, a 128-bit load); one count per load.
+    A load takes as many wavefronts as its busiest bank (32 of 4 bytes) has
+    distinct words.  A 32-bit load counts the same under both rules; a
+    128-bit load takes at least 4 over the warp ("warp"), or the count for
+    each quarter-warp of 8 lanes, summed ("quarter")."""
+    addr = np.asarray(addr)
+    if width == 1:
+        n = _busiest(addr, WARP)
+        return n, n
+    if width != 4:
+        raise ValueError(f"width {width}: want 1 (32-bit loads) or 4 (128-bit loads)")
+    quarters = _busiest(addr.reshape(*addr.shape[:-1], 4, WARP // 4), 8)
+    return np.maximum(4, _busiest(addr, 8)), quarters.sum(axis=-1)
+
+
+def record_warps(idx):
+    """[T // WARP] bool: the warps whose lanes each have one index for all
+    R rows, which take the record path on axis 1."""
+    idx = np.asarray(idx)
+    return (idx == idx[:1]).all(axis=0).reshape(-1, WARP).all(axis=1)
+
+
+def shared_wavefronts(idx, axis=1, layout="paired"):
+    """Shared-memory wavefronts per iteration per SM that the gather kernel's
+    loads need for the [R, T] indices ``idx`` (one block of T threads),
+    averaged over the T iterations of one period of (idx + i) mod T, by the
+    two rules of ``warp_wavefronts``.  ``layout`` says what the warps of
+    axis 1 that take the record path (``record_warps``) read, four 128-bit
+    loads a lane an iteration: "paired", the kernel's copy (``record_slot``
+    in the order of ``record_quad``); "swizzled", one copy, quad q at step q
+    in ``_xor_slot``; "record", one copy unswizzled, quad q of record j in
+    slot 4j + q at step q; "row", the row path as every other warp (one
+    32-bit load per row).  Axis 0 loads word (min(j, R), t) of the row copy
+    for every value, row R being the NaN row.
+
+    Returns {"warp", "quarter": wavefronts; "record_warps": warps on the
+    record path}."""
+    if layout not in LAYOUTS or axis not in (0, 1):
+        raise ValueError(f"layout {layout!r}, axis {axis}: want one of {LAYOUTS}, axis 0 or 1")
+    idx = np.asarray(idx).astype(np.int64)
+    warps = T // WARP
+    rec = record_warps(idx) if axis == 1 and layout != "row" else np.zeros(warps, bool)
+    total = {"warp": 0, "quarter": 0}
+    for i0 in range(0, T, _COUNT_CHUNK):
+        i = np.arange(i0, min(i0 + _COUNT_CHUNK, T))
+        j = (idx[None] + i[:, None, None]) & (T - 1)  # [iterations, R, T]
+        if axis == 1:
+            words = np.arange(R)[None, :, None] * T + j
+        else:
+            words = np.minimum(j, R) * T + np.arange(T)
+        loads = [(words.reshape(len(i), R, warps, WARP)[:, :, ~rec], 1)]
+        if rec.any():
+            jr = j[:, 0].reshape(len(i), warps, WARP)[:, rec]
+            lane = np.arange(WARP)
+            slot = {"paired": lambda k: record_slot(jr, record_quad(k, lane), lane),
+                    "swizzled": lambda k: _xor_slot(jr, k),
+                    "record": lambda k: 4 * jr + k}[layout]
+            loads += [(slot(k), 4) for k in range(QUADS)]
+        for addr, width in loads:
+            w, qw = warp_wavefronts(addr, width)
+            total["warp"] += int(w.sum())
+            total["quarter"] += int(qw.sum())
+    return dict(warp=total["warp"] / T, quarter=total["quarter"] / T,
+                record_warps=int(rec.sum()))
+
+
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\w+):")
+_SASS_INSTR = re.compile(  # /*addr*/ [@predicate] OPCODE args ;
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(sass, kernel="gather_bench_kernel"):
+    """The loops of the functions whose name holds ``kernel`` in the text of
+    ``cuobjdump -sass``: {function: [{"instructions": n, "ops": {opcode:
+    count}}, ...]}, one entry per backward branch, its body from the
+    branch's target to the branch (both in)."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        f = _SASS_FUNCTION.search(line)
+        if f:
+            name = f.group(1)
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        lab = _SASS_LABEL.match(line)
+        if lab:
+            funcs[name][1][lab.group(1)] = len(funcs[name][0])
+            continue
+        ins = _SASS_INSTR.search(line)
+        if ins:
+            funcs[name][0].append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
+    out = {}
+    for fn, (body, labels) in funcs.items():
+        if kernel not in fn:
+            continue
+        loops, at = [], {addr: k for k, (addr, _, _) in enumerate(body)}
+        for k, (addr, op, args) in enumerate(body):
+            if not op.startswith("BRA"):
+                continue
+            lab = re.search(r"\.L_x_\w+", args)
+            hexa = re.search(r"0x([0-9a-f]+)", args)
+            if lab:
+                start = labels.get(lab.group(0))
+            else:
+                start = at.get(int(hexa.group(1), 16)) if hexa else None
+            if start is None or start > k:
+                continue
+            ops = dict(Counter(o for _, o, _ in body[start:k + 1]))
+            loops.append(dict(instructions=k + 1 - start, ops=ops))
+        out[fn] = loops
+    return out
 
 
 def _check(tab, idx, iters, axis=1):

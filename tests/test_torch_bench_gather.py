@@ -13,6 +13,13 @@ indices that are negative or wrap int32.
 Tolerance: bit-equal, NaN positions equal.  Both sides add the same f32
 values in the same order (acc + g from 0; an out-of-range row of axis 0 is
 NaN on both), and the baseline's multiply and add are two roundings on both.
+
+The shared-memory wavefront counter (``shared_wavefronts``,
+``warp_wavefronts``) and the record-major copy's layout (``record_slot``
+and ``record_quad``, mirrored by the kernel) are checked here too: on
+hand-made warps whose counts follow from the bank model, as a layout that
+holds every record twice and rebuilds the table from either copy, and on
+the seeded inputs, whose counts PERF.md states.
 """
 
 import functools
@@ -53,15 +60,12 @@ def _jax(tab, idx, *, iters, axis=None):
 
 
 def _index(mode):
-    """The script's inputs ("rand", "lane"), or "wide": int32 indices over
-    the whole range, with some at the top so that ``idx + i`` wraps."""
-    tab, idx = bg.inputs()
-    if mode != "wide":
-        return tab, idx[mode]
-    rng = np.random.default_rng(5)
-    wide = rng.integers(-2**31, 2**31, size=(bg.R, bg.T), dtype=np.int64).astype(np.int32)
-    wide[:, ::7] = np.iinfo(np.int32).max - rng.integers(0, 5, size=(bg.R, 147))
-    return tab, wide
+    """The script's inputs ("rand", "lane"), or "wide" (int32 indices over
+    the whole range, some at the top so that ``idx + i`` wraps),
+    "wide-lane" (the same per lane, broadcast over the rows), "mixed"
+    (record-path and row-path warps in one block) or "lane-row" (per-lane
+    indices on the row path in every warp): ``bg.check_inputs``."""
+    return bg.check_inputs(mode)
 
 
 def _same(a, b):
@@ -74,7 +78,8 @@ def test_constants_are_the_scripts():
 
 
 @pytest.mark.parametrize("iters", [1, 7])
-@pytest.mark.parametrize("mode", ["rand", "lane", "wide"])
+@pytest.mark.parametrize("mode", ["rand", "lane", "wide", "wide-lane", "mixed",
+                                  "lane-row"])
 @pytest.mark.parametrize("axis", [1, 0])
 def test_gather_matches_jax(axis, mode, iters):
     tab, idx = _index(mode)
@@ -146,3 +151,181 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_check_inputs_cover_both_paths():
+    assert bg.CHECK_MODES[:2] == bg.INDEX_MODES == ("rand", "lane")
+    _, wide_lane = bg.check_inputs("wide-lane")
+    assert (wide_lane == wide_lane[:1]).all() and (wide_lane[0] > 2**31 - 8).sum() > 100
+    assert bg.record_warps(bg.check_inputs("wide-lane")[1]).all()
+    assert not bg.record_warps(bg.check_inputs("rand")[1]).any()
+    assert not bg.record_warps(bg.check_inputs("lane-row")[1]).any()
+    mixed = bg.record_warps(bg.check_inputs("mixed")[1])
+    # even warps broadcast their index over the rows, but warp 2's lane 5
+    # differs in one row, so warp 2 takes the row path
+    assert mixed.tolist() == [w % 2 == 0 and w != 2 for w in range(bg.T // bg.WARP)]
+    with pytest.raises(ValueError):
+        bg.check_inputs("bogus")
+
+
+@pytest.mark.parametrize("case,width,want", [
+    ("one word", 1, (1, 1)),
+    ("one bank, distinct words", 1, (32, 32)),
+    ("consecutive words", 1, (1, 1)),
+    ("one slot", 4, (4, 4)),
+    ("consecutive records", 4, (4, 4)),
+    ("random records", 4, (4, 4)),
+    ("one bank quad, distinct slots", 4, (32, 32)),
+])
+def test_warp_wavefronts_on_hand_made_warps(case, width, want):
+    lanes = np.arange(bg.WARP)
+    # the record path's loads at step 2 of an iteration
+    rec = {"consecutive records": 64 + lanes,
+           "random records": np.random.default_rng(3).integers(0, bg.T, bg.WARP)}
+    addr = {"one word": np.full(bg.WARP, 77),
+            "one bank, distinct words": 32 * lanes + 5,
+            "consecutive words": 100 + lanes,
+            "one slot": np.full(bg.WARP, 9),
+            "one bank quad, distinct slots": 8 * lanes + 3}
+    addr.update({k: bg.record_slot(j, bg.record_quad(2, lanes), lanes) for k, j in rec.items()})
+    addr = addr[case]
+    assert tuple(int(n) for n in bg.warp_wavefronts(addr, width)) == want
+
+
+def test_unswizzled_records_crowd_two_bank_quads():
+    # quad 1 of records 0 .. 31 in slot 4j + 1: bank quads 1 and 5 only
+    w, q = bg.warp_wavefronts(4 * np.arange(bg.WARP) + 1, 4)
+    assert (int(w), int(q)) == (16, 16)
+
+
+@pytest.mark.parametrize("case,want", [
+    # every lane of a warp on one word, per row: one wavefront a load
+    ("one word", 512),
+    # lane t on word t of its row: one wavefront a load
+    ("consecutive words", 512),
+    # the 32 lanes of a warp on 32 words of one bank: 32 a load
+    ("one bank", 32 * 512),
+    # consecutive records on the record path: four 128-bit loads of 4
+    ("consecutive records", 512),
+    # random records on the record path: the same
+    ("random records", 512),
+])
+def test_shared_wavefronts_on_hand_made_blocks(case, want):
+    lanes = np.broadcast_to(np.arange(bg.T, dtype=np.int32), (bg.R, bg.T))
+    idx = {"one word": np.zeros((bg.R, bg.T), np.int32),
+           "consecutive words": lanes + np.arange(bg.R, dtype=np.int32)[:, None],
+           "one bank": np.broadcast_to((lanes % bg.WARP) * bg.WARP, (bg.R, bg.T)),
+           "consecutive records": lanes,
+           "random records": np.broadcast_to(
+               np.random.default_rng(4).integers(0, bg.T, bg.T), (bg.R, bg.T))}[case]
+    records = case.endswith("records")
+    got = bg.shared_wavefronts(idx, axis=1, layout="paired" if records else "row")
+    assert got == dict(warp=want, quarter=want,
+                       record_warps=bg.T // bg.WARP if records else 0)
+
+
+def test_record_slot_holds_each_record_twice_and_rebuilds_the_table():
+    tab, _ = bg.inputs()
+    j, q = np.meshgrid(np.arange(bg.T), np.arange(bg.QUADS), indexing="ij")
+    # lane 0 reads copy 0, lane 4 copy 1: together they fill every slot once
+    slots = np.stack([bg.record_slot(j, q, lane) for lane in (0, 4)])
+    assert sorted(slots.ravel().tolist()) == list(range(2 * bg.R * bg.T // 4))
+    # record j fills its own 128-byte line, copy c on the bank quads 4c .. 4c + 3
+    assert ((slots // 8) == j).all() and (slots[1] % 8 == 4 + q).all()
+    copy = np.full(2 * bg.R * bg.T, np.nan, np.float32)
+    for c in range(2):
+        # every (record, row) word has exactly one address in each copy
+        words = (4 * slots[c][:, :, None] + np.arange(4)).reshape(bg.T, bg.R)
+        assert len(np.unique(words)) == bg.R * bg.T
+        copy[words] = tab.T  # record j: the column tab[:, j]
+    for lane in range(bg.WARP):
+        words = (4 * bg.record_slot(j, q, lane)[:, :, None] + np.arange(4)).reshape(bg.T, bg.R)
+        assert np.array_equal(copy[words].T, tab)
+
+
+def test_record_quad_spreads_a_quarter_warp_over_the_bank_quads():
+    lanes = np.arange(bg.WARP)
+    for lane in lanes:  # each lane loads every quad once an iteration
+        assert sorted(int(bg.record_quad(k, lane)) for k in range(bg.QUADS)) == [0, 1, 2, 3]
+    for k in range(bg.QUADS):  # whatever the records, 8 lanes on 8 bank quads
+        for j in (np.zeros(bg.WARP, int), np.arange(bg.WARP), 7 * lanes + 3):
+            quads = bg.record_slot(j, bg.record_quad(k, lanes), lanes) % 8
+            assert (np.sort(quads.reshape(4, 8), axis=1) == np.arange(8)).all()
+
+
+@pytest.mark.parametrize("mode,axis,layout,want", [
+    ("rand", 1, "paired", (1741, 1741)),
+    ("lane", 1, "paired", (512, 512)),
+    ("lane", 1, "swizzled", (884, 1336)),
+    ("lane", 1, "row", (1648, 1648)),
+    ("lane", 1, "record", (2304, 2576)),
+    ("wide-lane", 1, "paired", (512, 512)),
+    ("mixed", 1, "paired", (1155, 1155)),
+    ("mixed", 1, "swizzled", (1337, 1525)),
+    ("lane-row", 1, "paired", (1651, 1651)),
+    ("lane", 0, "paired", (512, 512)),
+])
+def test_seeded_counts_are_the_ones_perf_states(mode, axis, layout, want):
+    _, idx = bg.check_inputs(mode)
+    got = bg.shared_wavefronts(idx, axis=axis, layout=layout)
+    assert (got["warp"], got["quarter"]) == want
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119gather_bench_kernelILi0EEEvPKfPKiPfi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+.L_x_1:
+        /*0010*/                   VIMNMX.U32 R4, R2, R3, PT ;  /* 0x000000030204723c */
+        /*0020*/                   SHF.R.U32.HI R5, RZ, 0xa, R4 ;
+        /*0030*/                   LDS R6, [R5] ;
+        /*0040*/                   FADD R7, R7, R6 ;
+        /*0050*/                   IADD3 R2, R2, 0x400000, RZ ;
+        /*0060*/               @P0 BRA `(.L_x_1) ;
+        /*0070*/                   BRA 0x10 ;
+        /*0080*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_118gather_base_kernelEPKfPfi
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_loops_finds_each_backward_branch():
+    loops = bg.sass_loops(SASS)
+    assert list(loops) == ["_ZN12_GLOBAL__N_119gather_bench_kernelILi0EEEvPKfPKiPfi"]
+    first, second = loops["_ZN12_GLOBAL__N_119gather_bench_kernelILi0EEEvPKfPKiPfi"]
+    assert first == dict(instructions=6, ops={"VIMNMX.U32": 1, "SHF.R.U32.HI": 1, "LDS": 1,
+                                             "FADD": 1, "IADD3": 1, "BRA": 1})
+    assert second["instructions"] == 7 and second["ops"]["BRA"] == 2
+
+
+SWIZZLES = {  # XOR masks of the slot within its 128-byte line, by line
+    "line": lambda line: line & 7,
+    "line ^ line >> 3": lambda line: (line ^ (line >> 3)) & 7,
+    "line ^ line >> 3 ^ line >> 6": lambda line: (line ^ (line >> 3) ^ (line >> 6)) & 7,
+    "line >> 1": lambda line: (line >> 1) & 7,
+    "3 * line": lambda line: (3 * line) & 7,
+}
+
+
+@pytest.mark.parametrize("name", list(SWIZZLES))
+def test_other_swizzles_count_within_the_spread_of_random_records(monkeypatch, name):
+    """The one-copy record layout (two records a line, quad q at step q)
+    with other XOR swizzles in place of ``_xor_slot``'s: on the seeded
+    per-lane indices and the wrapping ones, every candidate lands in
+    840-884 wavefronts (warp rule) and 1304-1363 (quarter rule), the spread
+    of 32 random records over 8 bank quads, and none near the kernel's
+    two-copy layout's 512."""
+    mask = SWIZZLES[name]
+
+    def slot(j, q):
+        j = np.asarray(j)
+        line = j >> 1
+        return line * 8 + ((((j & 1) << 2) | q) ^ mask(line))
+
+    if name == "line":
+        j, q = np.meshgrid(np.arange(bg.T), np.arange(bg.QUADS), indexing="ij")
+        assert np.array_equal(slot(j, q), bg._xor_slot(j, q))
+    monkeypatch.setattr(bg, "_xor_slot", slot)
+    for mode in ("lane", "wide-lane"):
+        got = bg.shared_wavefronts(bg.check_inputs(mode)[1], axis=1, layout="swizzled")
+        assert 840 <= got["warp"] <= 884 and 1304 <= got["quarter"] <= 1363

@@ -23,7 +23,8 @@ kernel the valid-prefix scan, a table of several shared-memory chunks and
 one whose valid rows are not a prefix; for the gather probe and its loop
 baseline (``scripts/bench_gather.py``'s two kernels) every block's slice,
 at one block per SM and at three, on indices that are negative or wrap
-int32 too.
+int32 too, and on both of the probe's axis-1 paths, alone and in one
+launch.
 """
 
 import pytest
@@ -339,18 +340,13 @@ def test_bands_on_one_card_equal_the_whole(cuda, backend):
 
 
 def _gather_inputs(mode, dev):
-    """The probe's seeded table and ``mode``'s indices ("rand", "lane", or
-    "wide": the whole int32 range, some at the top so that idx + i wraps)."""
-    import numpy as np
-
-    tab, idx = bench_gather.inputs()
-    if mode == "wide":
-        rng = np.random.default_rng(5)
-        shape = (bench_gather.R, bench_gather.T)
-        w = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
-        w[:, ::7] = np.iinfo(np.int32).max - rng.integers(0, 5, size=(shape[0], 147))
-        idx = {"wide": w}
-    return torch.from_numpy(tab).to(dev), torch.from_numpy(idx[mode]).to(dev)
+    """The probe's seeded table and ``mode``'s indices: "rand", "lane",
+    "wide" (the whole int32 range, some at the top so that idx + i wraps),
+    "wide-lane" (the same per lane, broadcast over the rows: the record
+    path), "mixed" (record-path and row-path warps in one launch) or
+    "lane-row" (per-lane indices that every warp reads on the row path)."""
+    tab, idx = bench_gather.check_inputs(mode)
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(idx).to(dev)
 
 
 def _blocks_equal(out, ref):
@@ -359,12 +355,14 @@ def _blocks_equal(out, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["rand", "lane", "wide"])
+@pytest.mark.parametrize("mode", ["rand", "lane", "wide", "wide-lane", "mixed",
+                                  "lane-row"])
 @pytest.mark.parametrize("axis", [1, 0])
 def test_gather_probe_matches_plain(cuda, axis, mode):
     """The gather kernel == its plain version on every block's slice (one
-    block per SM, and three) at 1, 7 and 2048 iterations; one launch counted
-    per call."""
+    block per SM, and three) at 1, 7 and 2048 iterations, on both axis-1
+    paths (the record path for warps whose lanes broadcast one index over
+    the rows, the row path for the others); one launch counted per call."""
     tab, idx = _gather_inputs(mode, cuda)
     for iters in (1, 7, bench_gather.ITERS):
         ref = bench_gather.run_plain(tab, idx, iters=iters, axis=axis)
