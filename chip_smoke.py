@@ -24,7 +24,10 @@ one line and raises on failure, so any failure exits non-zero:
    renderer's 1920x1080 lane count for it (M=2 on an H100), with its
    home-order accumulator (every lane and pixel bit-equal), and the same
    for a merged state (4 calls, the last shorter), a balanced table built
-   from a real iterstats probe, and the iterstats instance; the brute-force step on
+   from a real iterstats probe, the iterstats instance, and the 1-spp frame
+   loops that phase 9 runs (65 merged calls of 1 spp under the balanced
+   table of their own M: the bench's at M = 16 and the sweep's at M = 8,
+   each the whole 1080-row band its renderer renders); the brute-force step on
    the three-sphere state (the path that launches it) and on the book-scene
    state, at their lane count (M=8), the kernel scanning the table's valid
    prefix and the plain version every row; the paged step
@@ -128,11 +131,26 @@ one line and raises on failure, so any failure exits non-zero:
    the same indices), over the launch's time.  The probe's ``bound_ms`` is
    the shared-memory bound (``bound_by`` "bytes": 128 B a wavefront), or
    the launch's device-memory bytes and fp32 operations where larger.
+9. bench: the JAX system's own measurement entry points as the port runs
+   them, in this process, each with every launch count set to 0 just
+   before it and read just after it (its kernels must launch, and no plain
+   version; the bench's gather tally runs the plain body through
+   ``gridkernel.grid_step_work``, which counts no launch):
+   ``raytrace_tpu_torch.bench.main()`` at its defaults (the
+   book scene at 1920x1080 x 10,000 spp, fast, ``balance_spp=32``, 2500
+   spp per call, 4 calls per dispatch), whose last line must parse as JSON
+   with ``measured == "full"``, every gate ok, the frame loop's M = 16, a
+   ``gather_floor_frac`` and ``device`` = the card's name and power limit,
+   printed whole as the ``[bench]`` line; ``scripts.baseline_configs`` 1-3
+   (``matmul`` on the CPU, ``mega`` and ``grid`` on the card);
+   ``scripts.stretch_bench`` at 320x180x8 and 3840x2160x8 on the 100k field
+   (paged kernel); ``scripts.spp1_loop_sweep`` at M = 2, 8, 16 over 2
+   rounds.
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
-of phases 5, 6 and 7, and for the gather probe of phase 8); the last line
-is ``{"ok": true, "device": {...}}``.
+of phases 5, 6, 7 and 9, and for the gather probe of phases 8 and 9); the
+last line is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
 
@@ -156,6 +174,8 @@ MAIN_SPP, MAIN_W, MAIN_H = 16, 1920, 1080
 # the JAX bench's operating point (bench.py:86-98)
 HEAD_SPP, HEAD_SPP_PER_CALL, HEAD_CALLS_PER_EXEC, HEAD_BALANCE_SPP = 10_000, 2500, 4, 32
 FRAME_LOOP_CALLS = 65
+# phase 9's spp1_loop_sweep: its Ms and rounds
+LOOP_SWEEP_MS, LOOP_SWEEP_ROUNDS = (2, 8, 16), 2
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
 N_BANDS, TUNE_ROUNDS, LOOP_FRAMES, PROD_FRAMES = 4, 5, 20, 3
 # the autotuner's phase: spp of each candidate's render, the block sweep's
@@ -590,16 +610,106 @@ def gather_probe(dev, smi, records, step_work) -> None:
     # time; beside it the same at the row path's rate on those indices
     # ("lane-row").  The kernels read L1 and L2 through __ldg, the probe
     # shared memory, so this is a floor, not the kernels' cost.
-    ns_value = {m: ms[(1, m)][sms] * 1e6 / values for m in ("lane", "lane-row")}
+    ns_value = {m: bg.ns_per_value(ms[(1, m)][sms], iters_max, sms)
+                for m in ("lane", "lane-row")}
     for name in ("grid_megakernel_step", "paged_megakernel_step"):
         n_values = step_work[name]["table_values"]
-        frac = {m: n_values * v / (records[name]["ms"] * 1e6) for m, v in ns_value.items()}
+        frac = {m: bg.gather_floor_frac(n_values, v, records[name]["ms"])
+                for m, v in ns_value.items()}
         records[name]["gather_floor_frac"] = frac["lane"]
         records[name]["gather_floor_frac_row_path"] = frac["lane-row"]
         phase("gather", f"{name}: gather_floor_frac {frac['lane']:.4f} = {n_values} table "
               f"values (a lower count) x {ns_value['lane']:.6f} ns per value over the card / "
               f"{records[name]['ms']:.3f} ms per launch; at the row path's "
               f"{ns_value['lane-row']:.6f} ns per value {frac['lane-row']:.4f} {card}")
+
+
+def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
+    """Phase 9: the JAX system's bench and scripts as the port runs them,
+    in this process, each with every launch count set to 0 just before it
+    and read just after it (its kernels must launch, and no plain
+    version): ``raytrace_tpu_torch.bench.main()`` at its defaults, BASELINE
+    configs 1-3, the stretch bench at 320x180x8 and 3840x2160x8 on the 100k
+    field, and the 1-spp frame-loop sweep at M = 2, 8, 16 over 2 rounds.
+    Their output is printed line by line under ``[bench]``.  Returns the
+    kernels' launches summed over the runs."""
+    import contextlib
+    import io
+
+    from raytrace_tpu_torch import bench
+    from raytrace_tpu_torch.scripts import baseline_configs
+    from raytrace_tpu_torch.scripts import bench_gather as bg
+    from raytrace_tpu_torch.scripts import spp1_loop_sweep, stretch_bench
+
+    counters = tuple(counters) + (bg.run, bg.run_base, bg.run_plain, bg.run_base_plain)
+    plain_names = list(plain_names) + [bg.run_plain.__name__, bg.run_base_plain.__name__]
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    totals = dict.fromkeys(launches(), 0)
+
+    def path(label, kernels, fn, env=None):
+        """``fn()`` counted, its stdout printed under [bench]; ``env``: the
+        variables set for the call (every BENCH_* variable unset)."""
+        saved = dict(os.environ)
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(env or {})
+        buf = io.StringIO()
+
+        def captured():
+            with contextlib.redirect_stdout(buf):
+                return fn()
+
+        t0 = time.perf_counter()
+        try:
+            out = counted_path("bench", label, kernels, captured, launches, counters,
+                               plain_names, totals)
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+        phase("bench", f"{label}: {time.perf_counter() - t0:.1f} s ({smi}); its output:")
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                phase("bench", line)
+        return out, buf.getvalue()
+
+    # the JAX bench's JSON line at its defaults: 1920x1080 x 10,000 spp,
+    # fast, balance_spp=32, 2500 spp per call, the profile's 4 calls per
+    # dispatch; its gates, the frame loop at M = 16, the probe and the
+    # gather floor run inside it
+    rc, text = path("python -m raytrace_tpu_torch.bench",
+                    ("grid_megakernel_step", "megakernel_step", "run"), bench.main)
+    rec = json.loads(text.strip().splitlines()[-1])
+    bad = bench.failed_gates({k: rec.get(k) or {} for k in (
+        "numeric_check", "numeric_check_multitile", "bitident_check", "fast_check",
+        "merge_check", "bandsplit_check")})  # each present, and ok
+    if (rc != 0 or rec.get("measured") != "full" or bad or rec.get("device") != smi
+            or kind not in rec["device"] or rec.get("spp1_frame_loop_m") != bench.FRAME_LOOP_M
+            or not (rec["utilization"] or {}).get("gather_floor_frac")):
+        raise RuntimeError(f"bench: rc {rc}, measured {rec.get('measured')}, gates not ok "
+                           f"{bad}, device {rec.get('device')!r}: {rec}")
+
+    recs, _ = path("baseline_configs 1 2 3", ("grid_megakernel_step", "megakernel_step"),
+                   lambda: baseline_configs.main(["1", "2", "3"]))
+    if ([r["backend"] for r in recs] != ["matmul", "mega", "grid"]
+            or any(r["nonfinite"] for r in recs)
+            or not recs[0]["device"].startswith("cpu") or recs[1]["device"] != smi):
+        raise RuntimeError(f"baseline_configs: {recs}")
+
+    recs, _ = path(f"stretch_bench {DENSE_N} 320x180x8 3840x2160x8",
+                   ("paged_megakernel_step",),
+                   lambda: stretch_bench.main([str(DENSE_N), "320x180x8", "3840x2160x8"]))
+    if any(r["backend"] != "paged" or r["nonfinite"] for r in recs) or len(recs) != 2:
+        raise RuntimeError(f"stretch_bench: {recs}")
+
+    env = {"MS": ",".join(map(str, LOOP_SWEEP_MS)), "SWEEP_ROUNDS": str(LOOP_SWEEP_ROUNDS)}
+    med, _ = path(f"spp1_loop_sweep MS={env['MS']} SWEEP_ROUNDS={env['SWEEP_ROUNDS']}",
+                  ("grid_megakernel_step",), lambda: spp1_loop_sweep.main([]), env=env)
+    if sorted(med) != list(LOOP_SWEEP_MS) or not all(v > 0 for v in med.values()):
+        raise RuntimeError(f"spp1_loop_sweep: {med}")
+    return totals
 
 
 def decode_png(path):
@@ -844,7 +954,7 @@ def main() -> int:
     import numpy as np
 
     import raytrace_tpu_torch
-    from raytrace_tpu_torch import RenderConfig, _build
+    from raytrace_tpu_torch import RenderConfig, _build, bench
     from raytrace_tpu_torch.models.scene import (generate_random_scene,
                                                  random_sphere_field,
                                                  three_sphere_scene)
@@ -903,10 +1013,11 @@ def main() -> int:
         """The renderer's M for (w, h) on this card."""
         return int(np.clip(-(-(w * h) // rmod.lanes_target(dev, backend)), 1, rmod.M_MAX))
 
-    def step_state(backend, dsc, w, h, spp, full_h=None, **pack):
-        """A band state at (w, h)'s lane count (the renderer's M): the top
-        band of an image ``full_h`` rows high (default: the whole image)."""
-        m = lanes_m(backend, w, h)
+    def step_state(backend, dsc, w, h, spp, full_h=None, m=None, **pack):
+        """A band state at (w, h)'s lane count (the renderer's M, or ``m``):
+        the top band of an image ``full_h`` rows high (default: the whole
+        image)."""
+        m = m or lanes_m(backend, w, h)
         vp = trace.viewport_arrays(cam, w, full_h or h)
         return m, trace.pack_state(
             dsc, vp, backend=backend, band_h=h, width=w, y0=0, seed_y0=0,
@@ -922,7 +1033,7 @@ def main() -> int:
 
     def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
                    tables, label="", accum=False, compact=None, check=None,
-                   pack=None, strict=False, full_h=None):
+                   pack=None, strict=False, full_h=None, m=None):
         """Pack a band state at (w, h)'s lane count, take it two launches
         in, then one kernel launch and one plain call from there in exact and
         fast mode; time both in exact mode.  ``call(k, scal, vpr, f, u, g,
@@ -933,9 +1044,9 @@ def main() -> int:
         disagreement in the kernel's output; ``pack``: further arguments of
         ``pack_state``; ``strict``: every lane must be bit-equal (else
         99.9%); ``full_h``: the state is the top band of an image that
-        high.  Returns (exact-mode input, max |diff|, ms, plain ms, bound
+        high; ``m``: pixels per lane in place of the renderer's.  Returns (exact-mode input, max |diff|, ms, plain ms, bound
         ms, bound by)."""
-        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, full_h,
+        m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, full_h, m,
                                                   **(pack or {}))
         live = compact or (lambda out: out[:2])
         max_err, res = 0.0, None
@@ -1007,26 +1118,40 @@ def main() -> int:
         "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
         gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
         grid_call(), grid_tables, accum=True, compact=grid_live, strict=True)
-    # the variants of this PR's slice: a merged state (4 calls of 16 spp, the
-    # last of 5), a balanced table from a real probe (2 spp at M=2), the
-    # iterstats instance
+    # the variants: a merged state (4 calls of 16 spp, the last of 5), a
+    # balanced table from a real probe (2 spp at M=2), the iterstats
+    # instance; and phase 9's 1-spp frame loops, 65 merged calls of 1 spp
+    # under the balanced table of their M (the probe's per-pixel costs, as
+    # balance_msweep shares one probe over its Ms): spp1_loop_sweep's Ms and
+    # the bench's M = 16
     m_main = lanes_m("grid", MAIN_W, MAIN_H)
     vp_main = trace.viewport_arrays(cam, MAIN_W, MAIN_H)
     cost = balance.measure_cost_map(dict(
         scene=ds, vp=vp_main, band_h=MAIN_H, width=MAIN_W, y0=0, seed_y0=0, offset_x=0,
         number=0, max_depth=50, backend="grid", pixels_per_lane=m_main, skip_tmax=skip,
         rr=RenderConfig(mode="fast").rr), 2)
-    table = torch.from_numpy(balance.build_passign(cost, m_main, trace.LANE_PAD)).to(dev)
-    variants = {"merged": (dict(n_calls=4, spp_last=5), {}),
-                "balanced": (dict(passign=table), dict(passign=table)),
-                "iterstats": ({}, dict(iterstats=True))}
+    tables = {m: torch.from_numpy(balance.build_passign(cost, m, trace.LANE_PAD)).to(dev)
+              for m in {m_main, bench.FRAME_LOOP_M, *LOOP_SWEEP_MS}}
+    table = tables[m_main]
+    loop = dict(n_calls=bench.FRAME_LOOP_CALLS, spp_last=1)
+    variants = {"merged": (MAIN_SPP, m_main, dict(n_calls=4, spp_last=5), {}),
+                "balanced": (MAIN_SPP, m_main, dict(passign=table), dict(passign=table)),
+                "iterstats": (MAIN_SPP, m_main, {}, dict(iterstats=True))}
+    for m in sorted({bench.FRAME_LOOP_M, *LOOP_SWEEP_MS}):
+        m_loop, chunk = rmod.band_layout(RenderConfig(width=MAIN_W, height=MAIN_H,
+                                                      pixels_per_lane=m), dev, "grid", MAIN_H)
+        if (m_loop, chunk) != (m, MAIN_H):
+            raise RuntimeError(f"the frame loop at M={m} renders {chunk}-row bands at "
+                               f"M={m_loop}, not the state checked here")
+        variants[f"frame_loop_m{m}"] = (1, m, dict(loop, passign=tables[m]),
+                                        dict(passign=tables[m]))
     variant_ms = {}
-    for label, (pack, step) in variants.items():
+    for label, (spp, m, pack, step) in variants.items():
         _, v_err, v_ms, v_plain_ms, *_ = check_step(
-            "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, skip,
+            "grid_megakernel_step", "grid", ds, MAIN_W, MAIN_H, spp, skip,
             gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
-            grid_call(**step), grid_tables + ([table] if "passign" in step else []),
-            label=f" ({label})", accum=True, compact=grid_live, pack=pack, strict=True)
+            grid_call(**step), grid_tables + ([step["passign"]] if "passign" in step else []),
+            label=f" ({label})", accum=True, compact=grid_live, pack=pack, strict=True, m=m)
         g_err = max(g_err, v_err)
         variant_ms[f"{label}_ms"], variant_ms[f"{label}_plain_ms"] = v_ms, v_plain_ms
     record("grid_megakernel_step", "raytrace_tpu_torch/csrc/gridkernel.cu",
@@ -1425,6 +1550,14 @@ def main() -> int:
 
     # ---- 8. the gather probe and the card's gather floor ----------------------
     gather_probe(dev, smi, records, step_work)
+
+    # ---- 9. the bench and the scripts its operating point rests on -----------
+    t9 = time.perf_counter()
+    bench_counts = bench_phase(dev, smi, kind, counters, plain_names)
+    for name in records:  # "bench_gather.run" counts as "run"
+        records[name]["launches"] += bench_counts[name.rsplit(".", 1)[-1]]
+    phase("bench", f"phase 9 in {time.perf_counter() - t9:.1f} s, launches "
+          f"{({k: v for k, v in bench_counts.items() if v})}")
 
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

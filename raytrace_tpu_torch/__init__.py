@@ -15,7 +15,10 @@ kernels for ``sm_90a`` (``csrc/``, built with nvcc on first use by
 Beside the render path, ``scripts/bench_gather.py`` ports the JAX package's
 gather microbenchmark (``scripts/bench_gather.py``: a lane gather from
 on-chip memory and its loop baseline) onto the CUDA kernels of
-``csrc/bench_gather.cu``.
+``csrc/bench_gather.cu``; ``bench.py`` (``python -m
+raytrace_tpu_torch.bench``) ports the JAX bench's JSON line, ``scripts/``
+the measurement scripts its operating point rests on, and ``oracle/`` the
+straight-line numpy oracle the goldens come from.
 
 The entry points render on the GPU and raise without one unless given
 ``device="cpu"``.

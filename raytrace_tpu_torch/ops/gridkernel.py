@@ -233,17 +233,28 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
 grid_megakernel_step.launches = 0
 
 
-def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
-                               n_lanes, p_total, width, max_depth,
-                               k_steps=K_STEPS, j_steps=J_STEPS,
-                               skip_tmax=False, rr=None, passign=None,
-                               iterstats=False, work=None):
+def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, **step):
     """The plain torch version of ``grid_megakernel_step``: the JAX
     ``_iterate`` vectorized over lanes, with the same operand order as the
     CUDA kernel, on the same CellTables; ``acc`` is updated in place.
-    ``work``: optional dict that receives the counts of
-    ``megakernel.count_work``."""
+    ``step``: the kernel's keywords, and ``work``: optional dict that
+    receives the counts of ``megakernel.count_work``."""
     launches.count(grid_megakernel_step_plain)
+    return _step_plain(scal, vpr, grid, fstate, ustate, acc, **step)
+
+
+def grid_step_work(scal, vpr, grid, fstate, ustate, acc, **step) -> dict:
+    """The ``megakernel.count_work`` tally of one launch on this state (the
+    plain version's body, so a count, not a render: it adds nothing to
+    either launch count); ``acc`` is updated in place."""
+    work = {}
+    _step_plain(scal, vpr, grid, fstate, ustate, acc, work=work, **step)
+    return work
+
+
+def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_total,
+                width, max_depth, k_steps=K_STEPS, j_steps=J_STEPS, skip_tmax=False,
+                rr=None, passign=None, iterstats=False, work=None):
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()

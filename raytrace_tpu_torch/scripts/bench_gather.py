@@ -420,6 +420,32 @@ def time_ms(fn, device, reps=REPS) -> float:
     return statistics.median(times)
 
 
+def ns_per_value(ms, iters, blocks) -> float:
+    """ns per gathered value over the card of a launch of ``blocks`` blocks
+    at ``iters`` iterations that took ``ms``."""
+    return ms * 1e6 / (iters * R * T * blocks)
+
+
+def card_ns_per_value(device, mode="lane", iters=ITERS) -> float:
+    """The card's gather rate: ns per value of the axis-1 probe on
+    ``inputs()``'s ``mode`` indices at one block per SM (``time_ms``)."""
+    device = torch.device(device)
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    tab_np, idx_np = inputs()
+    tab = torch.from_numpy(tab_np).to(device)
+    idx = torch.from_numpy(idx_np[mode]).to(device)
+    ms = time_ms(lambda: run(tab, idx, iters=iters, axis=1, blocks=blocks), device)
+    return ns_per_value(ms, iters, blocks)
+
+
+def gather_floor_frac(table_values, ns_value, launch_ms) -> float:
+    """The share of a wavefront launch that its table loads take at the
+    card's gather rate: ``table_values`` (the plain version's tally, a lower
+    count of the kernel's reads) x ``ns_value`` ns per value / the launch's
+    ``launch_ms``."""
+    return table_values * ns_value / (launch_ms * 1e6)
+
+
 def main(argv=None) -> dict:
     """Run the probe (see the module docstring); returns what it printed as
     a dict: ``card``, ``iters``, ``blocks``, ``gather`` {"axis=A idx=M":
@@ -444,7 +470,6 @@ def main(argv=None) -> dict:
         blocks = [1]
     tab_np, idx_np = inputs()
     tab = torch.from_numpy(tab_np).to(dev)
-    per_value = args.iters * R * T
     print(f"bench_gather: {dev}, [{R},{T}] f32 table, {args.iters} iterations, blocks "
           f"{blocks} ({card})", flush=True)
     res = dict(card=card, iters=args.iters, blocks=blocks, gather={}, base_ms={})
@@ -461,7 +486,7 @@ def main(argv=None) -> dict:
             ns = ms[1] * 1e6 / args.iters
             whole = "; ".join(
                 f"{b} blocks: {ms[b] * 1e6 / args.iters:.1f} ns per gather per block, "
-                f"{ms[b] * 1e6 / (per_value * b):.6f} ns per value over the card"
+                f"{ns_per_value(ms[b], args.iters, b):.6f} ns per value over the card"
                 for b in blocks if b > 1)
             print(f"{key}: correct={ok}; 1 block: {ns:.1f} ns per [{R},{T}] gather "
                   f"({ns / R:.2f} ns/row, {ns / (R * T) * 1024:.3f} ns/lane/16rows)"
@@ -471,7 +496,7 @@ def main(argv=None) -> dict:
                       for b in blocks}
     b = blocks[-1]
     net = ", ".join(
-        f"{k} {(g['ms'][b] - res['base_ms'][b]) * 1e6 / (per_value * b):.6f}"
+        f"{k} {ns_per_value(g['ms'][b] - res['base_ms'][b], args.iters, b):.6f}"
         for k, g in res["gather"].items())
     print("baseline add loop: " + "; ".join(
         f"{bb} block{'s' if bb > 1 else ''} {res['base_ms'][bb] * 1e6 / args.iters:.1f} ns "
