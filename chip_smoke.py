@@ -146,11 +146,26 @@ one line and raises on failure, so any failure exits non-zero:
    ``scripts.stretch_bench`` at 320x180x8 and 3840x2160x8 on the 100k field
    (paged kernel); ``scripts.spp1_loop_sweep`` at M = 2, 8, 16 over 2
    rounds.
+10. scripts: the JAX system's remaining scripts as the port runs them, in
+   this process, counted as in phase 9 (under ``[scripts]``; each script's
+   own assertions uncaught): ``scripts.hw_validate`` at its scenes and
+   sizes (the megakernel, grid and paged kernels: one-sample grid == mega
+   and paged == mega bit for bit on the book scene, the 5-value varied
+   field, the paged varied field, the textured grid field and the paged
+   textured field; pitch 2 == pitch 1 and balanced == strided at 16 spp);
+   ``scripts.stretch_reps`` (5 repeats of the 100k field at 3840x2160 x 8
+   spp, fast); at 1920x1080 on the book scene at the card's M = 2,
+   ``scripts.lane_balance``, ``scripts.balance_ab`` (balanced == strided
+   images), ``scripts.balance_policy_ab`` (serpentine == LPT images) and
+   ``scripts.grid_pitchsweep`` (pitches 1, 1.5, 2 and 3, every image
+   bit-identical); on the 100k field at 1920x1080, ``scripts.paged_ksweep``
+   at K = 10, 20, 40, 80 with ``K_AUTO`` off (every image bit-identical) and
+   ``scripts.paged_cellsweep``; 3 timed rounds per sweep.
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
-of phases 5, 6, 7 and 9, and for the gather probe of phases 8 and 9); the
-last line is ``{"ok": true, "device": {...}}``.
+of phases 5, 6, 7, 9 and 10, and for the gather probe of phases 8 and 9);
+the last line is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
 
@@ -176,6 +191,13 @@ HEAD_SPP, HEAD_SPP_PER_CALL, HEAD_CALLS_PER_EXEC, HEAD_BALANCE_SPP = 10_000, 250
 FRAME_LOOP_CALLS = 65
 # phase 9's spp1_loop_sweep: its Ms and rounds
 LOOP_SWEEP_MS, LOOP_SWEEP_ROUNDS = (2, 8, 16), 2
+# phase 10: the scripts' environment knobs (unset around each run), the
+# card's pixels per lane for the book-scene sweeps, the timed rounds of
+# every sweep, stretch_reps' repeats and paged_ksweep's Ks (around the 80
+# that scaled_k picks for the 100k field's 1080p and 4K lane counts)
+SCRIPT_KNOBS = ("SWEEP_", "AB_", "PROBE_SPP", "PITCHES", "VARIANTS", "KS", "SCALES",
+                "STRETCH_MODE")
+SWEEP_M, SWEEP_ROUNDS, STRETCH_REPS, PAGED_KS = 2, 3, 5, (10, 20, 40, 80)
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
 N_BANDS, TUNE_ROUNDS, LOOP_FRAMES, PROD_FRAMES = 4, 5, 20, 3
 # the autotuner's phase: spp of each candidate's render, the block sweep's
@@ -624,25 +646,15 @@ def gather_probe(dev, smi, records, step_work) -> None:
               f"{ns_value['lane-row']:.6f} ns per value {frac['lane-row']:.4f} {card}")
 
 
-def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
-    """Phase 9: the JAX system's bench and scripts as the port runs them,
-    in this process, each with every launch count set to 0 just before it
-    and read just after it (its kernels must launch, and no plain
-    version): ``raytrace_tpu_torch.bench.main()`` at its defaults, BASELINE
-    configs 1-3, the stretch bench at 320x180x8 and 3840x2160x8 on the 100k
-    field, and the 1-spp frame-loop sweep at M = 2, 8, 16 over 2 rounds.
-    Their output is printed line by line under ``[bench]``.  Returns the
-    kernels' launches summed over the runs."""
+def script_runner(tag, smi, counters, plain_names, unset):
+    """(path, totals): ``path(label, kernels, fn, env=None)`` runs ``fn()``
+    through ``counted_path`` with its stdout captured and printed line by
+    line under ``[tag]``, with the environment variables whose names start
+    with one of ``unset`` removed and ``env`` set for the call (restored
+    after); returns (``fn()``'s result, its stdout).  ``totals`` sums the
+    launches of every path."""
     import contextlib
     import io
-
-    from raytrace_tpu_torch import bench
-    from raytrace_tpu_torch.scripts import baseline_configs
-    from raytrace_tpu_torch.scripts import bench_gather as bg
-    from raytrace_tpu_torch.scripts import spp1_loop_sweep, stretch_bench
-
-    counters = tuple(counters) + (bg.run, bg.run_base, bg.run_plain, bg.run_base_plain)
-    plain_names = list(plain_names) + [bg.run_plain.__name__, bg.run_base_plain.__name__]
 
     def launches():
         return {c.__name__: c.launches for c in counters}
@@ -650,10 +662,8 @@ def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
     totals = dict.fromkeys(launches(), 0)
 
     def path(label, kernels, fn, env=None):
-        """``fn()`` counted, its stdout printed under [bench]; ``env``: the
-        variables set for the call (every BENCH_* variable unset)."""
         saved = dict(os.environ)
-        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        for k in [k for k in os.environ if k.startswith(unset)]:
             del os.environ[k]
         os.environ.update(env or {})
         buf = io.StringIO()
@@ -664,16 +674,37 @@ def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
 
         t0 = time.perf_counter()
         try:
-            out = counted_path("bench", label, kernels, captured, launches, counters,
+            out = counted_path(tag, label, kernels, captured, launches, counters,
                                plain_names, totals)
         finally:
             os.environ.clear()
             os.environ.update(saved)
-        phase("bench", f"{label}: {time.perf_counter() - t0:.1f} s ({smi}); its output:")
+        phase(tag, f"{label}: {time.perf_counter() - t0:.1f} s ({smi}); its output:")
         for line in buf.getvalue().splitlines():
             if line.strip():
-                phase("bench", line)
+                phase(tag, line)
         return out, buf.getvalue()
+
+    return path, totals
+
+
+def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
+    """Phase 9: the JAX system's bench and scripts as the port runs them,
+    in this process, each with every launch count set to 0 just before it
+    and read just after it (its kernels must launch, and no plain
+    version): ``raytrace_tpu_torch.bench.main()`` at its defaults, BASELINE
+    configs 1-3, the stretch bench at 320x180x8 and 3840x2160x8 on the 100k
+    field, and the 1-spp frame-loop sweep at M = 2, 8, 16 over 2 rounds.
+    Their output is printed line by line under ``[bench]``.  Returns the
+    kernels' launches summed over the runs."""
+    from raytrace_tpu_torch import bench
+    from raytrace_tpu_torch.scripts import baseline_configs
+    from raytrace_tpu_torch.scripts import bench_gather as bg
+    from raytrace_tpu_torch.scripts import spp1_loop_sweep, stretch_bench
+
+    counters = tuple(counters) + (bg.run, bg.run_base, bg.run_plain, bg.run_base_plain)
+    plain_names = list(plain_names) + [bg.run_plain.__name__, bg.run_base_plain.__name__]
+    path, totals = script_runner("bench", smi, counters, plain_names, ("BENCH_",))
 
     # the JAX bench's JSON line at its defaults: 1920x1080 x 10,000 spp,
     # fast, balance_spp=32, 2500 spp per call, the profile's 4 calls per
@@ -709,6 +740,66 @@ def bench_phase(dev, smi, kind, counters, plain_names) -> dict:
                   ("grid_megakernel_step",), lambda: spp1_loop_sweep.main([]), env=env)
     if sorted(med) != list(LOOP_SWEEP_MS) or not all(v > 0 for v in med.values()):
         raise RuntimeError(f"spp1_loop_sweep: {med}")
+    return totals
+
+
+def scripts_phase(smi, counters, plain_names) -> dict:
+    """Phase 10: the JAX system's remaining scripts as the port runs them,
+    in this process, each through ``script_runner`` (its kernels must
+    launch, and no plain version; its own assertions uncaught): hw_validate
+    (kernels 1-3; its one-sample grid == mega and paged == mega on every
+    layout, pitch 2 == pitch 1, balanced == strided), stretch_reps on the
+    100k field at 3840x2160 x 8 spp, lane_balance, balance_ab and
+    balance_policy_ab (serpentine == LPT images) and grid_pitchsweep (every
+    pitch bit-identical) at 1920x1080 and the card's M = 2, paged_ksweep
+    (every K bit-identical, ``K_AUTO`` off) and paged_cellsweep on the 100k
+    field at 1920x1080.  Returns the kernels' launches summed over the
+    runs."""
+    from raytrace_tpu_torch.scripts import (balance_ab, balance_policy_ab, grid_pitchsweep,
+                                            hw_validate, lane_balance, paged_cellsweep,
+                                            paged_ksweep, stretch_reps)
+
+    path, totals = script_runner("scripts", smi, counters, plain_names, SCRIPT_KNOBS)
+    grid, mega, paged = "grid_megakernel_step", "megakernel_step", "paged_megakernel_step"
+
+    out, _ = path("hw_validate", (grid, mega, paged), lambda: hw_validate.main([]))
+    layouts = ("book grid", "varied grid", "paged-varied paged", "ttab grid", "paged-tex paged")
+    if (sorted(out["one_sample"]) != sorted(layouts) or any(out["one_sample"].values())
+            or out["pitch2_px"] or out["balanced_px"]):
+        raise RuntimeError(f"hw_validate: {out}")
+
+    rec, _ = path(f"stretch_reps {STRETCH_REPS} {DENSE_W}x{DENSE_H}x{DENSE_SPP}", (paged,),
+                  lambda: stretch_reps.main([str(STRETCH_REPS),
+                                             f"{DENSE_W}x{DENSE_H}x{DENSE_SPP}"]))
+    if rec["backend"] != "paged" or len(rec["reps"]) != STRETCH_REPS or rec["device"] != smi:
+        raise RuntimeError(f"stretch_reps: {rec}")
+
+    book = {"SWEEP_M": str(SWEEP_M), "SWEEP_ROUNDS": str(SWEEP_ROUNDS)}
+    res, _ = path(f"lane_balance SWEEP_M={SWEEP_M}", (grid,), lambda: lane_balance.main([]),
+                  env=book)
+    if not res["strided"]["max/mean"] >= res["lpt"]["max/mean"] >= 1.0:
+        raise RuntimeError(f"lane_balance: {res}")
+    for mod, want in ((balance_ab, ["strided", "balanced"]),
+                      (balance_policy_ab, ["serpentine", "lpt"])):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        med, _ = path(f"{name} SWEEP_M={SWEEP_M} SWEEP_ROUNDS={SWEEP_ROUNDS}", (grid,),
+                      lambda mod=mod: mod.main([]), env=book)
+        if list(med) != want:
+            raise RuntimeError(f"{name}: {med}")
+    med, _ = path(f"grid_pitchsweep SWEEP_M={SWEEP_M} SWEEP_ROUNDS={SWEEP_ROUNDS}", (grid,),
+                  lambda: grid_pitchsweep.main([]), env=book)
+    if (1.0, 2) not in med or (2.0, 2) not in med:
+        raise RuntimeError(f"grid_pitchsweep: {med}")
+
+    dense = {"SWEEP_ROUNDS": str(SWEEP_ROUNDS), "KS": ",".join(map(str, PAGED_KS))}
+    med, _ = path(f"paged_ksweep KS={dense['KS']} SWEEP_ROUNDS={SWEEP_ROUNDS}", (paged,),
+                  lambda: paged_ksweep.main([]), env=dense)
+    if sorted(med) != sorted(PAGED_KS):
+        raise RuntimeError(f"paged_ksweep: {med}")
+    med, _ = path(f"paged_cellsweep SWEEP_ROUNDS={SWEEP_ROUNDS}", (paged,),
+                  lambda: paged_cellsweep.main([]), env={"SWEEP_ROUNDS": str(SWEEP_ROUNDS)})
+    if 1.0 not in med:
+        raise RuntimeError(f"paged_cellsweep: {med}")
     return totals
 
 
@@ -1558,6 +1649,17 @@ def main() -> int:
         records[name]["launches"] += bench_counts[name.rsplit(".", 1)[-1]]
     phase("bench", f"phase 9 in {time.perf_counter() - t9:.1f} s, launches "
           f"{({k: v for k, v in bench_counts.items() if v})}")
+
+    # ---- 10. the JAX system's remaining scripts ----------------------------
+    t10 = time.perf_counter()
+    script_counts = scripts_phase(smi, counters, plain_names)
+    for name in records:
+        records[name]["launches"] += script_counts.get(name, 0)
+    for name in ("grid_megakernel_step", "megakernel_step", "paged_megakernel_step"):
+        if script_counts[name] == 0:
+            raise RuntimeError(f"{name} did not launch in phase 10")
+    phase("scripts", f"phase 10 in {time.perf_counter() - t10:.1f} s, launches "
+          f"{({k: v for k, v in script_counts.items() if v})}")
 
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -59,6 +59,9 @@ from .megakernel import (S_NUMBER, S_OFFX, S_SEEDY0, S_SPP, S_Y0, SKY, TMIN,
 from .shading_rows import norm3, shade_rows
 
 K_STEPS = 10  # iterations per launch at 32k lanes; scaled_k scales it
+# K_AUTO (the JAX package's switch, read at call time): True scales K_STEPS
+# with the lane count (scaled_k); sweeps set False to launch exactly K_STEPS
+K_AUTO = True
 _TAG = float(np.float32(8388608.0))  # 2^23: bkey >= _TAG is a global winner
 
 R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
@@ -88,7 +91,10 @@ def pf_rows(nc: int) -> int:
 def scaled_k(n_lanes: int) -> int:
     """Re-bucket interval: K_STEPS per 32k lanes (the JAX package's K_AUTO
     rule; 80 at the 100k frame's 267k lanes, the best of 10/20/40/80 on the
-    card).  Output bits do not depend on it."""
+    card).  With ``K_AUTO`` off it is K_STEPS, unscaled.  Output bits do
+    not depend on it."""
+    if not K_AUTO:
+        return K_STEPS
     return K_STEPS * max(1, round(n_lanes / 32768))
 
 

@@ -2,7 +2,7 @@
 """Where the time of one frame of ``raytrace_tpu_torch`` goes, on one GPU.
 
 Run from the repository root: ``python3 torch_breakdown.py [--scene
-book|dense|gridless|pallas|headline|step|bands] [--root DIR]``.  It needs one CUDA
+book|dense|gridless|pallas|headline|step|bands|first-call] [--root DIR]``.  It needs one CUDA
 device and builds the port's kernels on first use.  ``--scene book`` (the default) times the book
 scene at 1920x1080 and 16 spp on the grid kernel (``ray_trace``'s main
 path); ``--scene dense`` times ``random_sphere_field(100_000)`` at 3840x2160
@@ -67,6 +67,11 @@ and a thread per band on the default stream; then one instrumented banded
 call of the shipped and of the lockstep way (each band's launches, kernel
 time by CUDA events on its stream, the host clock at each launch) and the
 profiler's top host and device entries over one banded call.
+``--scene first-call`` (run it in a process of its own) renders the 100k
+field at 320x180 x 8 spp, fast, after a 1-spp warm-up, twice, each time
+with the paged render's launches, key, sorts and gathers timed by CUDA
+events: where the process's first such call spends the time the second
+does not.
 """
 
 from __future__ import annotations
@@ -100,6 +105,7 @@ HEADLINE_WAYS = {"merge+balance": dict(calls_per_exec=4, balance_spp=32),
                  "merge": dict(calls_per_exec=4), "balance": dict(balance_spp=32),
                  "neither": {}}
 STEP_REPS = 21
+FIRST_CALL = dict(samples=8, width=320, height=180, mode="fast")
 
 
 def wall(fn):
@@ -169,6 +175,41 @@ def tail_stats(ms, alive):
     launches that start with fewer than TAIL of the first launch's lanes."""
     tail = [m for m, a in zip(ms, alive) if a < TAIL * alive[0]]
     return len(tail), sum(tail), sum(tail) / sum(ms)
+
+
+def first_call(res):
+    """``--scene first-call``: in this fresh process, ``random_sphere_field(
+    100_000)`` at FIRST_CALL (320x180 x 8 spp, fast; the paged kernel)
+    after one 1-spp warm-up call, rendered ``instrumented`` twice: each
+    part's summed time (CUDA events, which include the device's wait for
+    the host) in the process's first 8-spp call against the second."""
+    from raytrace_tpu_torch import RenderConfig
+    from raytrace_tpu_torch.models.scene import random_sphere_field
+    from raytrace_tpu_torch.ops import pagedkernel
+    from raytrace_tpu_torch.runtime.renderer import Renderer
+
+    import torch
+
+    def allocator():  # the caching allocator's device allocations and retries
+        st = torch.cuda.memory_stats()
+        return {k: st.get(k, 0) for k in ("num_device_alloc", "num_alloc_retries",
+                                          "reserved_bytes.all.current")}
+
+    r = Renderer(RenderConfig(**FIRST_CALL), scene=random_sphere_field(DENSE_N))
+    wall(lambda: r.render_call(1))  # the warm-up, as stretch_reps and stretch_bench do
+    for i in (1, 2):
+        before = allocator()
+        sec, ms, alive, glue = instrumented(r, pagedkernel, "paged_megakernel_step")
+        after = allocator()
+        slow = sorted(range(len(ms)), key=lambda j: -ms[j])[:3]
+        res[f"call_{i}"] = {
+            "allocator_delta": {k: after[k] - before[k] for k in after},
+            "wall_s": round(sec, 4), "launches": len(ms), "kernel_ms": round(sum(ms), 3),
+            **{f"{k}_ms": round(sum(v), 3) for k, v in glue.items() if v},
+            "slowest_launches": [(j, ms[j], alive[j]) for j in slow],
+            "slowest_sorts": sorted(glue["sort"], reverse=True)[:3],
+            "slowest_gathers": sorted(glue["gather"], reverse=True)[:3]}
+    print(json.dumps(res))
 
 
 def headline(res, ms_sweep=None):
@@ -397,7 +438,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=sorted(SCENES) + ["headline", "step", "bands"],
+    ap.add_argument("--scene", choices=sorted(SCENES) + ["headline", "step", "bands",
+                                                         "first-call"],
                     default="book")
     ap.add_argument("--root", default=ROOT,
                     help="the checkout to import raytrace_tpu_torch from (--scene step)")
@@ -411,7 +453,7 @@ def main() -> int:
         print("torch_breakdown: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    if scene_name in ("headline", "step", "bands"):
+    if scene_name in ("headline", "step", "bands", "first-call"):
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
@@ -421,6 +463,8 @@ def main() -> int:
             headline(res, args.m)
         elif scene_name == "bands":
             bands(res, args.bands_of)
+        elif scene_name == "first-call":
+            first_call(res)
         else:
             step(res)
         return 0
