@@ -35,7 +35,14 @@ one line and raises on failure, so any failure exits non-zero:
    3840x2160 lane count, with its home-order accumulator (every pixel
    bit-equal) and its sort-key row (equal to ``trace._rebucket_key``); and
    the fused intersect kernel (valid prefix; its plain version every row)
-   on the 259,200 rays of the book-scene state;
+   on the 259,200 rays of the book-scene state; and, untimed, every lane and
+   pixel bit-equal, the states phase 10's scripts launch at their scenes,
+   sizes, M and spp: ``hw_validate``'s 5-value varied grid, ``ttab`` grid,
+   paged varied and paged ``has_tex`` fields (on their kernel and on the
+   megakernel), its book at M=64 (grid and megakernel) and its pitch-2 grid,
+   ``grid_pitchsweep``'s 16-slot grids at pitch 1.5, 2 and 3 at 1920x1080
+   and M=2, and on the 100k field at 1920x1080 the paged kernel at
+   ``paged_ksweep``'s K=10 and at ``paged_cellsweep``'s cell scale 0.7;
 4. gates: the JAX package's gates through ``runtime/validation.py`` on the
    card: ``golden_check`` single and multi-tile for bruteforce, mega and grid
    (its ``ok``, and 24x14: <= 3 px off by > 1e-4; 128x72: <= 1% of pixels
@@ -1124,7 +1131,7 @@ def main() -> int:
 
     def check_step(name, backend, dsc, w, h, spp, skip_tmax, kern, plain, call,
                    tables, label="", accum=False, compact=None, check=None,
-                   pack=None, strict=False, full_h=None, m=None):
+                   pack=None, strict=False, full_h=None, m=None, timed=True):
         """Pack a band state at (w, h)'s lane count, take it two launches
         in, then one kernel launch and one plain call from there in exact and
         fast mode; time both in exact mode.  ``call(k, scal, vpr, f, u, g,
@@ -1135,8 +1142,9 @@ def main() -> int:
         disagreement in the kernel's output; ``pack``: further arguments of
         ``pack_state``; ``strict``: every lane must be bit-equal (else
         99.9%); ``full_h``: the state is the top band of an image that
-        high; ``m``: pixels per lane in place of the renderer's.  Returns (exact-mode input, max |diff|, ms, plain ms, bound
-        ms, bound by)."""
+        high; ``m``: pixels per lane in place of the renderer's; ``timed``:
+        time the exact-mode launch (else its times are None).  Returns
+        (exact-mode input, max |diff|, ms, plain ms, bound ms, bound by)."""
         m, (f0, u0, scal, vpr, geom) = step_state(backend, dsc, w, h, spp, full_h, m,
                                                   **(pack or {}))
         live = compact or (lambda out: out[:2])
@@ -1159,7 +1167,9 @@ def main() -> int:
             max_err = max(max_err, err, acc_err)
             n = f1.shape[1]
             timing = ""
-            if mode == "exact":
+            if mode == "exact" and not timed:
+                res = ((f1, u1), None, None, None, None)
+            elif mode == "exact":
                 acc_t = acc.clone() if accum else None
                 ms = cuda_ms(lambda: call(kern, scal, vpr, f1, u1, g, acc_t), 5)
                 plain_ms = cuda_ms(lambda: call(plain, scal, vpr, f1, u1, g, acc_t), 2)
@@ -1201,8 +1211,8 @@ def main() -> int:
     def grid_live(out):
         return trace.gather_lanes(out[0], out[1], trace.live_lanes(out[1][gridkernel.U_ALIVE]))
 
-    def grid_call(**step):
-        return lambda k, s, v, f, u, g, acc, **x: k(s, v, ds.grid, f, u, acc, **g, **step, **x)
+    def grid_call(dsc=ds, **step):
+        return lambda k, s, v, f, u, g, acc, **x: k(s, v, dsc.grid, f, u, acc, **g, **step, **x)
 
     grid_tables = [t for t in ds.grid if torch.is_tensor(t)]
     _, g_err, *g_res = check_step(
@@ -1250,8 +1260,9 @@ def main() -> int:
 
     # the brute-force kernel scans the valid prefix of the table; its plain
     # version scans every row
-    def mega_call(dsc, at):
+    def mega_call(dsc, at=None):
         n_valid = int(dsc.valid.sum())
+        at = dsc.table[:, 8:24].T.contiguous() if at is None else at
 
         def call(k, s, v, f, u, g, acc, **x):
             if k is megakernel.megakernel_step:
@@ -1280,17 +1291,28 @@ def main() -> int:
     # row are checked too
     gs = dds.paged.gscal
 
-    def paged_live(out):  # the packed state has no key row yet
-        key = out[2] if len(out) > 2 else trace._rebucket_key(out[0], out[1], gs)
+    def paged_live(out, dsc=dds):  # the packed state has no key row yet
+        key = (out[2] if len(out) > 2
+               else trace._rebucket_key(out[0], out[1], dsc.paged.gscal))
         return trace.gather_lanes(out[0], out[1], trace.live_order(key))
 
-    def paged_call(k, s, v, f, u, g, acc, **x):
-        return k(s, v, dds.paged, f, u, acc, **g, **x,
-                 k_steps=pagedkernel.scaled_k(g["n_lanes"]))
+    def paged_on(dsc, k_steps=None):
+        """The paged step on ``dsc``'s tables at ``k_steps`` iterations
+        (default: ``scaled_k`` of the lane count, as the driver)."""
+        def call(k, s, v, f, u, g, acc, **x):
+            return k(s, v, dsc.paged, f, u, acc, **g, **x,
+                     k_steps=k_steps or pagedkernel.scaled_k(g["n_lanes"]))
+        return call
 
-    def key_check(out):
-        return (int((out[2] != trace._rebucket_key(out[0], out[1], gs)).sum()),
+    paged_call = paged_on(dds)
+
+    def key_check(out, dsc=dds):
+        return (int((out[2] != trace._rebucket_key(out[0], out[1], dsc.paged.gscal)).sum()),
                 "key rows differ from _rebucket_key")
+
+    def paged_tables(dsc):
+        g = dsc.paged
+        return [g.geom, g.lids, g.attrs, g.gtab, g.gscal]
 
     _, p_err, *p_res = check_step(
         "paged_megakernel_step", "paged", dds, DENSE_W, DENSE_H, DENSE_SPP, dense_skip,
@@ -1299,6 +1321,82 @@ def main() -> int:
         accum=True, compact=paged_live, check=key_check)
     record("paged_megakernel_step", "raytrace_tpu_torch/csrc/pagedkernel.cu",
            "raytrace_tpu/ops/pagedkernel.py:794", p_err, *p_res)
+
+    # the layouts and operating points that phase 10's scripts launch beyond
+    # the main path's, each at the script's scene, size, M and spp (every
+    # lane and accumulator pixel bit-equal, exact and fast; untimed):
+    # hw_validate's fields (the 5-value varied grid, the grid's ttab, the
+    # paged varied and has_tex fields) on their kernel and on the
+    # megakernel, its book at M = 64 on both and its pitch-2 grid;
+    # grid_pitchsweep's 16-slot grids at the card's M = 2; paged_ksweep's
+    # K = 10 with K_AUTO off and paged_cellsweep's cell scale 0.7 on the
+    # 100k field at 1920x1080
+    from raytrace_tpu_torch.models import paged_grid
+    from raytrace_tpu_torch.models.grid import build_grid
+    from raytrace_tpu_torch.ops.intersect import sphere_table
+    from raytrace_tpu_torch.scripts import grid_pitchsweep as gps
+    from raytrace_tpu_torch.scripts import hw_validate as hv
+
+    def on_card(host):
+        return trace.device_scene_from_numpy(host, dev)
+
+    fields = {name: on_card(trace.prepare_scene(sc)) for name, sc in (
+        ("varied", hv.varied_field()), ("ttab", hv.ttab_field()),
+        ("paged varied", hv.paged_field()), ("paged has_tex", hv.paged_field(textured=True)))}
+    book_host, book_table = trace.prepare_scene(scene), sphere_table(scene)
+    grids = [("book", ds, hv.BOOK_W, hv.BOOK_H, hv.BOOK_M, hv.BOOK_SPP),
+             ("5-value varied", fields["varied"], hv.W, hv.H, hv.M, hv.VARIED_SPP),
+             ("ttab", fields["ttab"], hv.W, hv.H, hv.M, hv.TTAB_SPP),
+             ("pitch 2", on_card(book_host._replace(grid=build_grid(
+                 scene, book_table, pitch=2.0))), hv.W, hv.H, hv.M, hv.PITCH_SPP)]
+    for p in [float(p) for p in gps.PITCHES.split(",")][1:]:
+        g = build_grid(scene, book_table, pitch=p, max_slots=gps.MAX_SLOTS)
+        if g is None:
+            raise RuntimeError(f"the book scene's grid at pitch {p} does not build")
+        grids.append((f"pitch {p}, {gps.MAX_SLOTS} slots", on_card(book_host._replace(grid=g)),
+                      MAIN_W, MAIN_H, SWEEP_M, gps.SPP))
+    for label, dsc, w, h, m, spp in grids:
+        _, err, *_ = check_step(
+            "grid_megakernel_step", "grid", dsc, w, h, spp, True,
+            gridkernel.grid_megakernel_step, gridkernel.grid_megakernel_step_plain,
+            grid_call(dsc), [t for t in dsc.grid if torch.is_tensor(t)],
+            label=f" ({label}, M={m})", accum=True, compact=grid_live, strict=True, m=m,
+            timed=False)
+        records["grid_megakernel_step"]["max_abs_err"] = max(
+            records["grid_megakernel_step"]["max_abs_err"], err)
+    field_spp = {"varied": hv.VARIED_SPP, "ttab": hv.TTAB_SPP, "paged varied": hv.PAGED_SPP,
+                 "paged has_tex": hv.PAGED_TEX_SPP}
+    megas = [("book", ds, hv.BOOK_W, hv.BOOK_H, hv.BOOK_M, 1)] + [
+        (name, dsc, hv.W, hv.H, hv.M, field_spp[name]) for name, dsc in fields.items()]
+    for label, dsc, w, h, m, spp in megas:
+        _, err, *_ = check_step(
+            "megakernel_step", "mega", dsc, w, h, spp, True,
+            megakernel.megakernel_step, megakernel.megakernel_step_plain, mega_call(dsc),
+            [dsc.table], label=f" ({label}, M={m})", strict=True, m=m, timed=False)
+        records["megakernel_step"]["max_abs_err"] = max(
+            records["megakernel_step"]["max_abs_err"], err)
+    s0 = paged_grid.CELL_SIZE_SCALE
+    paged_grid.CELL_SIZE_SCALE = 0.7
+    try:
+        dds07 = on_card(trace.prepare_scene(dense_scene))
+    finally:
+        paged_grid.CELL_SIZE_SCALE = s0
+    if dds07.paged is None:
+        raise RuntimeError("the 100k field built no paged tables at cell scale 0.7")
+    pageds = [(name, fields[name], hv.W, hv.H, hv.M, field_spp[name], None)
+              for name in ("paged varied", "paged has_tex")]
+    pageds += [(f"K={PAGED_KS[0]}, K_AUTO off", dds, MAIN_W, MAIN_H, None, DENSE_SPP,
+                PAGED_KS[0]),
+               ("cell scale 0.7", dds07, MAIN_W, MAIN_H, None, DENSE_SPP, None)]
+    for label, dsc, w, h, m, spp, k_steps in pageds:
+        _, err, *_ = check_step(
+            "paged_megakernel_step", "paged", dsc, w, h, spp, True,
+            pagedkernel.paged_megakernel_step, pagedkernel.paged_megakernel_step_plain,
+            paged_on(dsc, k_steps), paged_tables(dsc), label=f" ({label})", accum=True,
+            compact=lambda out, dsc=dsc: paged_live(out, dsc),
+            check=lambda out, dsc=dsc: key_check(out, dsc), strict=True, m=m, timed=False)
+        records["paged_megakernel_step"]["max_abs_err"] = max(
+            records["paged_megakernel_step"]["max_abs_err"], err)
 
     # the fused intersect kernel on the rays of the book-scene state two
     # launches into a 1080p render (259,200 camera and bounce rays)

@@ -60,7 +60,8 @@ from .shading_rows import norm3, shade_rows
 
 K_STEPS = 10  # iterations per launch at 32k lanes; scaled_k scales it
 # K_AUTO (the JAX package's switch, read at call time): True scales K_STEPS
-# with the lane count (scaled_k); sweeps set False to launch exactly K_STEPS
+# with the lane count (scaled_k); scripts/paged_ksweep, its only user, sets
+# False to launch exactly K_STEPS
 K_AUTO = True
 _TAG = float(np.float32(8388608.0))  # 2^23: bkey >= _TAG is a global winner
 

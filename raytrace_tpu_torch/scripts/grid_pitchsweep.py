@@ -40,6 +40,10 @@ import os
 import statistics
 import time
 
+# the JAX script's pitches, the slot cap every pitch's grid is built with,
+# and its spp
+PITCHES, MAX_SLOTS, SPP = "1.0,1.5,2.0,3.0", 16, 400
+
 
 def main(argv=None) -> dict:
     """Run the sweep; returns {(pitch, J): median seconds}."""
@@ -60,7 +64,7 @@ def main(argv=None) -> dict:
     device = render_device(args.device)
     w = int(os.environ.get("SWEEP_W", 1920))
     h = int(os.environ.get("SWEEP_H", 1080))
-    spp = int(os.environ.get("SWEEP_SPP", 400))
+    spp = int(os.environ.get("SWEEP_SPP", SPP))
     rounds = int(os.environ.get("SWEEP_ROUNDS", 5))
     j_default = int(os.environ.get("SWEEP_J", 2))
     k = int(os.environ.get("SWEEP_K", 40))
@@ -70,7 +74,7 @@ def main(argv=None) -> dict:
                  for v in os.environ["VARIANTS"].split(",")]
     else:
         pairs = [(float(p), j_default) for p in
-                 os.environ.get("PITCHES", "1.0,1.5,2.0,3.0").split(",")]
+                 os.environ.get("PITCHES", PITCHES).split(",")]
     card = card_label(device)
 
     sc = generate_random_scene(0.0)
@@ -81,7 +85,7 @@ def main(argv=None) -> dict:
     variants, grids, scenes = {}, {}, {}
     for p, j in pairs:
         if p not in grids:
-            grids[p] = build_grid(sc, table, pitch=p, max_slots=16)
+            grids[p] = build_grid(sc, table, pitch=p, max_slots=MAX_SLOTS)
         g = grids[p]
         if g is None:
             print(f"pitch {p}: does not build (skipped)", flush=True)

@@ -46,15 +46,48 @@ import time
 
 import numpy as np
 
-# the JAX script's images (the book probe's and the others') and spp
-BOOK_W, BOOK_H = 1920, 1080
-W, H = 640, 360
+# the JAX script's images (the book probe's and the others'), their pixels
+# per lane, and spp
+BOOK_W, BOOK_H, BOOK_M = 1920, 1080, 64
+W, H, M = 640, 360, 16
 BOOK_SPP, VARIED_SPP, PAGED_SPP, TTAB_SPP, PAGED_TEX_SPP, PITCH_SPP, BALANCE_SPP = (
     400, 64, 8, 8, 4, 16, 16)
 # the fields: the varied grid field, the paged fields, the textured grid field
 VARIED = dict(count=250, seed=3, extent=11.0, y_range=(0.2, 2.5))
 PAGED = dict(count=20_000, seed=1, extent=25.0, y_range=(0.2, 2.0))
 TTAB = dict(count=60, seed=3, extent=8.0)
+
+
+def varied_field():
+    """Block 2's scene: 250 spheres at varied heights (the 5-value grid
+    layout)."""
+    from ..models.scene import random_sphere_field
+
+    return random_sphere_field(**VARIED)
+
+
+def ttab_field():
+    """Block 4's scene: the 60-sphere field with spheres 10-19 checkered
+    (the grid's ``ttab``)."""
+    from ..models.scene import CHECKERED, random_sphere_field
+
+    sct = random_sphere_field(**TTAB)
+    sct.texture[10:20] = CHECKERED
+    sct.color1[10:20] = (0.9, 0.1, 0.1)
+    return sct
+
+
+def paged_field(textured=False):
+    """Blocks 3 and 5: the 20,000-sphere varied field (the paged 5-value
+    layout), with spheres 50-499 checkered when ``textured`` (paged
+    ``has_tex``)."""
+    from ..models.scene import CHECKERED, random_sphere_field
+
+    sp = random_sphere_field(**PAGED)
+    if textured:
+        sp.texture[50:500] = CHECKERED
+        sp.color1[50:500] = (0.9, 0.2, 0.1)
+    return sp
 
 
 def diff_stats(a, b) -> dict:
@@ -74,7 +107,7 @@ def main(argv=None) -> dict:
     "spp": {layout: diff_stats}, "pitch2_px", "balanced_px", "times":
     {label: seconds}}."""
     from ..models.grid import build_grid
-    from ..models.scene import CHECKERED, generate_random_scene, random_sphere_field
+    from ..models.scene import generate_random_scene
     from ..ops.intersect import sphere_table
     from ..ops.trace import (LANE_PAD, device_scene_from_numpy, prepare_scene,
                              render_band, viewport_arrays)
@@ -95,14 +128,14 @@ def main(argv=None) -> dict:
     def to_dev(host):
         return device_scene_from_numpy(host, device)
 
-    def render(ds, backend, w, h, spp, m=16, **kw):
+    def render(ds, backend, w, h, spp, m=M, **kw):
         t0 = time.perf_counter()
         img = render_band(ds, vps[(w, h)], band_h=h, width=w, y0=0, seed_y0=0,
                           offset_x=0, spp=spp, number=0, max_depth=50, backend=backend,
                           pixels_per_lane=m, skip_tmax=True, **kw).cpu().numpy()
         return img, time.perf_counter() - t0
 
-    def one_sample(label, ds, backend, w, h, m=16):
+    def one_sample(label, ds, backend, w, h, m=M):
         """``backend`` == brute force bit for bit on a one-sample call."""
         a, _ = render(ds, "mega", w, h, 1, m)
         b, _ = render(ds, backend, w, h, 1, m)
@@ -128,15 +161,15 @@ def main(argv=None) -> dict:
     book_sc = generate_random_scene(0.0)
     book_host = prepare_scene(book_sc)
     book = to_dev(book_host)
-    render(book, "grid", BOOK_W, BOOK_H, 4, m=64)  # warm
-    _, t = render(book, "grid", BOOK_W, BOOK_H, BOOK_SPP, m=64)
+    render(book, "grid", BOOK_W, BOOK_H, 4, m=BOOK_M)  # warm
+    _, t = render(book, "grid", BOOK_W, BOOK_H, BOOK_SPP, m=BOOK_M)
     out["times"]["book grid"] = t
     print(f"book grid {BOOK_SPP}spp: {t:.3f}s  "
           f"{t/(BOOK_W*BOOK_H*BOOK_SPP)*1e9:.3f} ns/sample ({card})", flush=True)
-    one_sample("book grid", book, "grid", BOOK_W, BOOK_H, m=64)
+    one_sample("book grid", book, "grid", BOOK_W, BOOK_H, m=BOOK_M)
 
     # 2) varied-height grid (the 5-value layout) vs mega
-    host = prepare_scene(random_sphere_field(**VARIED))
+    host = prepare_scene(varied_field())
     if host.grid is None or host.grid.has_cy is None:
         raise RuntimeError("the varied field did not build the 5-value grid layout")
     ds = to_dev(host)
@@ -149,8 +182,7 @@ def main(argv=None) -> dict:
     versus("varied grid", "grid", a, b, ta, tb, W * H * VARIED_SPP)
 
     # 3) paged five layout vs mega (dense varied field)
-    sp = random_sphere_field(**PAGED)
-    host = prepare_scene(sp)
+    host = prepare_scene(paged_field())
     if host.paged is None or host.paged.has_cy is None:
         raise RuntimeError("the dense varied field did not build the paged 5-value layout")
     dp = to_dev(host)
@@ -163,10 +195,7 @@ def main(argv=None) -> dict:
     print("HW VALIDATION DONE", flush=True)
 
     # 4) textured field spheres (the grid's ttab)
-    sct = random_sphere_field(**TTAB)
-    sct.texture[10:20] = CHECKERED
-    sct.color1[10:20] = (0.9, 0.1, 0.1)
-    host = prepare_scene(sct)
+    host = prepare_scene(ttab_field())
     if host.grid is None or host.grid.ttab is None:
         raise RuntimeError("the textured field did not build the grid's ttab")
     dt = to_dev(host)
@@ -176,9 +205,7 @@ def main(argv=None) -> dict:
     versus("ttab grid", "grid", a, b)
 
     # 5) textured + varied paged (has_tex)
-    sp.texture[50:500] = CHECKERED
-    sp.color1[50:500] = (0.9, 0.2, 0.1)
-    host = prepare_scene(sp)
+    host = prepare_scene(paged_field(textured=True))
     if host.paged is None or host.paged.has_tex is None:
         raise RuntimeError("the textured dense field did not build the paged has_tex layout")
     dpt = to_dev(host)
@@ -203,9 +230,9 @@ def main(argv=None) -> dict:
     #    bit (an assignment moves no sample between pixels)
     kwb = dict(scene=book, vp=vps[(W, H)], band_h=H, width=W, y0=0, seed_y0=0,
                offset_x=0, spp=BALANCE_SPP, number=0, max_depth=50, backend="grid",
-               pixels_per_lane=16, skip_tmax=True, rr=(1, 16, 0.05))
+               pixels_per_lane=M, skip_tmax=True, rr=(1, 16, 0.05))
     cost = measure_cost_map(kwb, 8)
-    tab = build_passign(cost, 16, LANE_PAD)
+    tab = build_passign(cost, M, LANE_PAD)
     a = render_band(**kwb).cpu().numpy()
     b = render_band(**kwb, passign=tab).cpu().numpy()
     n = out["balanced_px"] = diff_stats(a, b)["px"]

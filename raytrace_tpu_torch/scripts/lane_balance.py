@@ -8,11 +8,11 @@ probe twice (numbers 0 and 1: independent sample streams), then evaluates
 lane-total balance on the book scene under three policies:
 
   strided     the production map (pixel of lane k, slot m = m*n + k)
-  serpentine  pixels sorted by measured cost, dealt boustrophedon across
-              the lanes (``runtime/balance.build_passign(method=
-              "serpentine")``'s deal)
-  lpt         the pass-sorted greedy deal (``method="lpt"``): each pass
-              hands the next n sorted pixels heaviest-first to the
+  serpentine  ``runtime/balance.build_passign(method="serpentine")``'s
+              table: pixels sorted by measured cost, dealt boustrophedon
+              across the lanes
+  lpt         its ``method="lpt"`` table, the pass-sorted greedy deal: each
+              pass hands the next n sorted pixels heaviest-first to the
               lightest lanes
 
 max/mean lane total is the scheduling-efficiency ceiling: a launch runs
@@ -37,42 +37,25 @@ import time
 import numpy as np
 
 
-def lane_stats(cost_flat: np.ndarray, assign: np.ndarray, n: int) -> dict:
-    """assign[p] = the lane owning pixel p; lane totals' balance stats."""
-    totals = np.bincount(assign, weights=cost_flat, minlength=n)
+def lane_stats(cost_flat: np.ndarray, table, m: int) -> dict:
+    """Lane totals' balance stats for a pixel->lane table of
+    ``build_passign`` (None: the strided map); max/mean is
+    ``balance_stats``'."""
+    from ..runtime.balance import balance_stats
+
+    p_total = cost_flat.size
+    n = -(-p_total // m)
+    lane_of = np.arange(p_total) % n
+    if table is not None:
+        flat = table.ravel()
+        ok = flat < p_total
+        lane_of[flat[ok]] = np.tile(np.arange(table.shape[1]), table.shape[0])[ok]
+    totals = np.bincount(lane_of, weights=cost_flat, minlength=n)
     return {
-        "max/mean": totals.max() / totals.mean(),
+        "max/mean": balance_stats(cost_flat, table, m)["max_over_mean"],
         "p99/mean": np.percentile(totals, 99) / totals.mean(),
         "mean": totals.mean(),
     }
-
-
-def serpentine_assign(cost: np.ndarray, n: int) -> np.ndarray:
-    """Boustrophedon deal over the cost-sorted pixels: rank r goes to lane
-    r % n on even passes and n - 1 - r % n on odd ones."""
-    p_total = cost.size
-    order = np.argsort(-cost, kind="stable")
-    ranks = np.arange(p_total)
-    pass_i, col = ranks // n, ranks % n
-    assign = np.empty(p_total, np.int64)
-    assign[order] = np.where(pass_i % 2 == 0, col, n - 1 - col)
-    return assign
-
-
-def lpt_assign(cost: np.ndarray, n: int) -> np.ndarray:
-    """Pass-sorted greedy LPT: each pass hands the next n sorted pixels
-    heaviest-first to the lightest lanes."""
-    p_total = cost.size
-    order = np.argsort(-cost, kind="stable")
-    assign = np.empty(p_total, np.int64)
-    totals = np.zeros(n, np.float64)
-    sorted_cost = cost[order]
-    for p in range(-(-p_total // n)):
-        chunk = order[p * n : (p + 1) * n]
-        lanes = np.argsort(totals, kind="stable")[: chunk.size]
-        assign[chunk] = lanes
-        totals[lanes] += sorted_cost[p * n : p * n + chunk.size]
-    return assign
 
 
 def main(argv=None) -> dict:
@@ -80,7 +63,9 @@ def main(argv=None) -> dict:
     serpentine and lpt in-sample and held-out, and strided on probe 1."""
     from .. import config as _cfg
     from ..models.scene import generate_random_scene
-    from ..ops.trace import device_scene_from_numpy, prepare_scene, render_band, viewport_arrays
+    from ..ops.trace import (LANE_PAD, device_scene_from_numpy, prepare_scene, render_band,
+                             viewport_arrays)
+    from ..runtime.balance import build_passign
     from ..runtime.renderer import reference_camera, render_device
     from .bench_gather import card_label
 
@@ -112,24 +97,18 @@ def main(argv=None) -> dict:
 
     cost = probe(0)  # issued iterations per pixel
     cost_b = probe(1)  # independent streams: the held-out map
-    p_total = w * h
-    n = -(-p_total // m)  # lanes of the production map
     print(f"per-pixel issued iters/sample: mean {cost.mean()/spp:.3f} "
           f"p50 {np.percentile(cost,50)/spp:.2f} "
           f"p99 {np.percentile(cost,99)/spp:.2f} "
           f"max {cost.max()/spp:.2f}")
 
-    strided_assign = np.arange(p_total) % n
-    serp_assign = serpentine_assign(cost, n)
-    lpt_a = lpt_assign(cost, n)
-    res = {
-        "strided": lane_stats(cost, strided_assign, n),
-        "serpentine": lane_stats(cost, serp_assign, n),
-        "serpentine held-out": lane_stats(cost_b, serp_assign, n),
-        "lpt": lane_stats(cost, lpt_a, n),
-        "lpt held-out": lane_stats(cost_b, lpt_a, n),
-        "strided held-out": lane_stats(cost_b, strided_assign, n),
-    }
+    tabs = {"serpentine": build_passign(cost, m, LANE_PAD, method="serpentine"),
+            "lpt": build_passign(cost, m, LANE_PAD, method="lpt")}
+    res = {"strided": lane_stats(cost, None, m)}
+    for name, tab in tabs.items():
+        res[name] = lane_stats(cost, tab, m)
+        res[f"{name} held-out"] = lane_stats(cost_b, tab, m)
+    res["strided held-out"] = lane_stats(cost_b, None, m)
     strided, serp, lpt = res["strided"], res["serpentine"], res["lpt"]
     serp_held, lpt_held = res["serpentine held-out"], res["lpt held-out"]
     strided_b = res["strided held-out"]

@@ -9,7 +9,7 @@ holds what it holds on the card: every pitch and every K renders the same
 image bit for bit, balanced == strided and serpentine == LPT images,
 ``hw_validate``'s one-sample grid == mega and paged == mega on each layout.
 ``lane_balance``'s policies give ``runtime/balance``'s statistics for the
-tables ``build_passign`` deals.  ``scaled_k`` follows the JAX package's
+tables ``build_passign`` deals, and the JAX script's.  ``scaled_k`` follows the JAX package's
 rule (``raytrace_tpu/ops/pagedkernel.py``) with ``K_AUTO`` on and off.
 Without a card and without ``--device cpu`` every script raises; importing
 them leaves JAX out.
@@ -208,20 +208,35 @@ def test_lane_balance_matches_balance_stats(monkeypatch, m):
 
 
 @pytest.mark.parametrize("m", [1, 4, 7])
-def test_lane_balance_deals_are_build_passigns(m):
-    """lane_balance's two deals give each pixel the lane build_passign's
-    table gives it."""
+def test_lane_balance_stats_match_the_jax_script(m):
+    """lane_balance's stats of a build_passign table are the JAX script's
+    lane_stats of the same deal made by the JAX package's build_passign
+    (and of the strided map)."""
+    import importlib.util
+
+    from raytrace_tpu.runtime.balance import build_passign as jax_build_passign
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_lane_balance", os.path.join(ROOT, "scripts", "lane_balance.py"))
+    jlb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jlb)
     rng = np.random.default_rng(m)
     cost = rng.lognormal(1.0, 0.9, 401)
     n = -(-cost.size // m)
-    for method, deal in (("serpentine", lane_balance.serpentine_assign),
-                         ("lpt", lane_balance.lpt_assign)):
-        tab = build_passign(cost, m, LANE_PAD, method=method)
-        lane_of = np.empty(cost.size, np.int64)
-        for slot, row in enumerate(tab):
-            ok = row < cost.size
-            lane_of[row[ok]] = np.nonzero(ok)[0]
-        assert np.array_equal(deal(cost, n), lane_of)
+    for method in (None, "serpentine", "lpt"):
+        if method is None:
+            tab, lane_of = None, np.arange(cost.size) % n
+        else:
+            tab = build_passign(cost, m, LANE_PAD, method=method)
+            jtab = jax_build_passign(cost, m, LANE_PAD, method=method)
+            assert np.array_equal(tab, jtab)
+            lane_of = np.empty(cost.size, np.int64)
+            for row in jtab:
+                ok = row < cost.size
+                lane_of[row[ok]] = np.nonzero(ok)[0]
+        got, want = lane_balance.lane_stats(cost, tab, m), jlb.lane_stats(cost, lane_of, n)
+        assert got["p99/mean"] == want["p99/mean"] and got["mean"] == want["mean"]
+        assert got["max/mean"] == pytest.approx(want["max/mean"], rel=1e-12, abs=0)
 
 
 def _jax_json_keys(script):
