@@ -168,10 +168,31 @@ one line and raises on failure, so any failure exits non-zero:
    bit-identical); on the 100k field at 1920x1080, ``scripts.paged_ksweep``
    at K = 10, 20, 40, 80 with ``K_AUTO`` off (every image bit-identical) and
    ``scripts.paged_cellsweep``; 3 timed rounds per sweep.
+11. probes: the grid and paged kernels' section-cost probes.  Every
+   variant library is built at once (the grid kernel's seven duplications,
+   ``freeze`` and ``freeze`` with each of its nine removals; the paged
+   kernel's ``freeze`` and ``freeze`` with each of its nine), and the
+   production library's ptxas lines must equal phase 2's; each variant's
+   registers, frame, spills and SASS instruction count at the main path's
+   instance (book scene; 100k field), every duplication's SASS longer than
+   production's; each duplication's first launch from the 1920x1080 x 1
+   spp exact state (every lane and pixel) and its ``Renderer`` image of
+   that frame (``gridkernel.ABLATE``) bit-equal to the production
+   kernel's; ``freeze`` and each removal under it, grid and paged, bit-equal
+   to its plain version on one launch from the scripts' frozen mid-flight
+   states (book at 1080p, M = 64, one production launch, the live lanes;
+   the 100k field at 1080p, M = 64, a launch, the re-bucket, a launch),
+   every lane, key and accumulator pixel, NaN equal to NaN; then in this
+   process, counted as in phase 9 (their launches also by variant):
+   ``scripts.grid_ablate`` at its defaults and with ``--mode fast`` at
+   M = 2, ``scripts.grid_iterbench`` exact and fast, and
+   ``scripts.paged_iterbench``, each over 3 rounds (the iterbenches at 60
+   and 30 launches a round, against the JAX scripts' 300 and 60).
 
 Every time is printed beside the card's name and power limit.  Before the
 last line it prints the kernels' JSON record (``launches`` are the counts
-of phases 5, 6, 7, 9 and 10, and for the gather probe of phases 8 and 9);
+of phases 5, 6, 7, 9, 10 and 11, and for the gather probe of phases 8 and
+9; the grid and paged rows also list phase 11's launches by variant);
 the last line is ``{"ok": true, "device": {...}}``.
 Images and the build log are written under ``build/smoke/`` (gitignored).
 """
@@ -205,6 +226,10 @@ LOOP_SWEEP_MS, LOOP_SWEEP_ROUNDS = (2, 8, 16), 2
 SCRIPT_KNOBS = ("SWEEP_", "AB_", "PROBE_SPP", "PITCHES", "VARIANTS", "KS", "SCALES",
                 "STRETCH_MODE")
 SWEEP_M, SWEEP_ROUNDS, STRETCH_REPS, PAGED_KS = 2, 3, 5, (10, 20, 40, 80)
+# phase 11: the probes' environment knobs, timed rounds and launches a round
+PROBE_KNOBS = ("SWEEP_", "ABLATE_VARIANTS", "M", "INVOKES", "ROUNDS", "VARIANTS",
+               "PITCH", "N_SPHERES", "CARRY")
+PROBE_ROUNDS, GRID_INVOKES, PAGED_INVOKES = 3, 60, 30
 DENSE_SPP, DENSE_W, DENSE_H, DENSE_N = 8, 3840, 2160, 100_000
 N_BANDS, TUNE_ROUNDS, LOOP_FRAMES, PROD_FRAMES = 4, 5, 20, 3
 # the autotuner's phase: spp of each candidate's render, the block sweep's
@@ -656,10 +681,10 @@ def gather_probe(dev, smi, records, step_work) -> None:
 def script_runner(tag, smi, counters, plain_names, unset):
     """(path, totals): ``path(label, kernels, fn, env=None)`` runs ``fn()``
     through ``counted_path`` with its stdout captured and printed line by
-    line under ``[tag]``, with the environment variables whose names start
-    with one of ``unset`` removed and ``env`` set for the call (restored
-    after); returns (``fn()``'s result, its stdout).  ``totals`` sums the
-    launches of every path."""
+    line under ``[tag]``, with the environment variables named in ``unset``
+    removed (a name ending in "_" is a prefix) and ``env`` set for the call
+    (restored after); returns (``fn()``'s result, its stdout).  ``totals``
+    sums the launches of every path."""
     import contextlib
     import io
 
@@ -670,7 +695,8 @@ def script_runner(tag, smi, counters, plain_names, unset):
 
     def path(label, kernels, fn, env=None):
         saved = dict(os.environ)
-        for k in [k for k in os.environ if k.startswith(unset)]:
+        for k in [k for k in os.environ
+                  if k in unset or k.startswith(tuple(u for u in unset if u.endswith("_")))]:
             del os.environ[k]
         os.environ.update(env or {})
         buf = io.StringIO()
@@ -808,6 +834,170 @@ def scripts_phase(smi, counters, plain_names) -> dict:
     if 1.0 not in med:
         raise RuntimeError(f"paged_cellsweep: {med}")
     return totals
+
+
+def probes_phase(dev, smi, counters, plain_names, ptxas_lines) -> dict:
+    """Phase 11: the section-cost probes.  Builds every variant library at
+    once, holds the production library's ptxas lines to phase 2's, prints
+    each variant's compiled figures (every duplication's SASS longer than
+    production's), holds each duplication's first launch and 1080p x 1 spp
+    image bit-equal to production's and ``freeze`` and each removal under
+    it, grid and paged, bit-equal to its plain version on the scripts'
+    frozen mid-flight states; then runs the three probe scripts in this
+    process through ``script_runner``.  Returns (the kernels' launches over
+    the scripts, {kernel: {variant: launches}})."""
+    import torch
+
+    from raytrace_tpu_torch import RenderConfig, _build
+    from raytrace_tpu_torch.models.scene import generate_random_scene, random_sphere_field
+    from raytrace_tpu_torch.ops import gridkernel as gk
+    from raytrace_tpu_torch.ops import pagedkernel as pk
+    from raytrace_tpu_torch.ops import trace
+    from raytrace_tpu_torch.runtime import renderer as rmod
+    from raytrace_tpu_torch.scripts import (grid_ablate, grid_iterbench, paged_iterbench,
+                                            probe_runs)
+
+    cuts = lambda switches: [("freeze", c) for c in switches if c.startswith("cut_")]  # noqa: E731
+    grid_sets = [(d,) for d in gk.DUPLICATIONS] + [("freeze",)] + cuts(gk.SWITCHES)
+    paged_sets = [("freeze",)] + cuts(pk.SWITCHES)
+    gmask = {s: gk.switch_mask(s) for s in grid_sets}
+    pmask = {s: pk.switch_mask(s, pk.SWITCHES, "paged") for s in paged_sets}
+    t0 = time.perf_counter()
+    infos = _build.build_many([(None, 0, 0)] + [(None, m, 0) for m in gmask.values()]
+                              + [(None, 0, m) for m in pmask.values()])
+    phase("probes", f"{len(infos) - 1} variant libraries ({len(gmask)} grid, {len(pmask)} "
+          f"paged) built at once in {time.perf_counter() - t0:.1f} s")
+    lines = [ln.strip() for ln in infos[0]["log"].splitlines() if "registers" in ln]
+    if lines != ptxas_lines:
+        raise RuntimeError(f"the production library's ptxas lines changed: {lines}")
+    phase("probes", "the production library's ptxas lines == phase 2's")
+
+    book_np = trace.prepare_scene(generate_random_scene(0.0))
+    ds = trace.device_scene_from_numpy(book_np, dev)
+    dds = trace.device_scene_from_numpy(trace.prepare_scene(random_sphere_field(DENSE_N)), dev)
+    five, textured = pk.layout(dds.paged)[:2]
+    reps = {"grid": probe_runs.compiled(dev, "grid", [0, *gmask.values()],
+                                        probe_runs.grid_instance(ds.grid.five,
+                                                                 ds.grid.n_slots)),
+            "paged": probe_runs.compiled(dev, "paged", [0, *pmask.values()],
+                                         probe_runs.paged_instance(five, textured))}
+    for kernel, masks in (("grid", gmask), ("paged", pmask)):
+        rep = reps[kernel]
+        phase("probes", f"{kernel} production: {probe_runs.compiled_text(rep[0])}")
+        for sw, m in masks.items():
+            phase("probes", f"{kernel} {'+'.join(sw)}: "
+                  f"{probe_runs.compiled_text(rep[m], rep[0])}")
+            if sw[0] in gk.DUPLICATIONS and rep[m]["sass"] <= rep[0]["sass"]:
+                raise RuntimeError(f"{sw[0]}: the compiler removed the duplicate")
+
+    # the duplications: the first launch from the 1080p x 1 spp state and
+    # the frame, bit-equal to the production kernel's
+    cam = rmod.reference_camera()
+    skip = trace.tmax_never_binds(generate_random_scene(0.0), cam)
+    m_main = int(-(-(MAIN_W * MAIN_H) // rmod.lanes_target(dev, "grid")))
+    f0, u0, scal, vpr, geom = trace.pack_state(
+        ds, trace.viewport_arrays(cam, MAIN_W, MAIN_H), backend="grid", band_h=MAIN_H,
+        width=MAIN_W, y0=0, seed_y0=0, offset_x=0, spp=1, number=0, pixels_per_lane=m_main)
+    kw = dict(geom, max_depth=50, skip_tmax=skip, k_steps=gk.K_STEPS, j_steps=gk.J_STEPS)
+
+    def launch(ablate):
+        acc = trace.home_accum(None, geom["p_total"], dev)
+        f, u = gk.grid_megakernel_step(scal, vpr, ds.grid, f0, u0, acc, ablate=ablate, **kw)
+        return f, u, acc
+
+    cfg = RenderConfig(samples=1, width=MAIN_W, height=MAIN_H)
+    r = rmod.Renderer(cfg, device=dev)
+    fb, ub, accb = launch(())
+    img_b = r.render_call(1)
+    ablate0 = gk.ABLATE
+    try:
+        for dup in gk.DUPLICATIONS:
+            fd, ud, accd = launch((dup,))
+            n_bad, _ = compare((fd, ud), (fb, ub))
+            acc_bad, _ = compare((accd.T,), (accb.T,))
+            gk.ABLATE = frozenset({dup})
+            px_bad = int((r.render_call(1) != img_b).any(dim=2).sum())
+            phase("probes", f"{dup}: first launch from the {MAIN_W}x{MAIN_H} x 1 spp state "
+                  f"(M={m_main}): {n_bad} of {fd.shape[1]} lanes and {acc_bad} pixels differ "
+                  f"from production; the frame: {px_bad} px differ")
+            if n_bad or acc_bad or px_bad:
+                raise RuntimeError(f"{dup} changes the image")
+    finally:
+        gk.ABLATE = ablate0
+
+    phase("probes", f"builds, compiled figures and the duplications' checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # freeze and the removals vs their plain versions on the scripts' states
+    def frozen_check(kernel, step, plain, sets, f1, u1, kw1, tables):
+        for sw in sets:
+            outs = []
+            for fn in (step, plain):
+                acc = acc1.clone()
+                out = fn(scal1, vpr1, tables, f1, u1, acc, ablate=sw, **kw1)
+                outs.append((out, acc))
+            torch.cuda.synchronize()
+            n_bad, err = compare(outs[0][0], outs[1][0])
+            acc_bad, _ = compare((outs[0][1].T,), (outs[1][1].T,))
+            phase("probes", f"{kernel} {'+'.join(sw)} vs plain, one launch of {kw1['k_steps']} "
+                  f"iterations on {f1.shape[1]} frozen lanes: {n_bad} lanes and {acc_bad} "
+                  f"pixels differ, max |diff| {err}")
+            if n_bad or acc_bad:
+                raise RuntimeError(f"{kernel} {sw} differs from its plain version")
+
+    f, u, scal1, vpr1, geom1 = trace.pack_state(
+        ds, trace.viewport_arrays(cam, MAIN_W, MAIN_H), backend="grid", band_h=MAIN_H,
+        width=MAIN_W, y0=0, seed_y0=0, offset_x=0, spp=grid_iterbench.SPP, number=0,
+        pixels_per_lane=grid_iterbench.M)
+    acc1 = trace.home_accum(None, geom1["p_total"], dev)
+    kw1 = dict(geom1, max_depth=50, skip_tmax=True, k_steps=gk.K_STEPS, j_steps=gk.J_STEPS)
+    f, u = gk.grid_megakernel_step(scal1, vpr1, ds.grid, f, u, acc1, **kw1)
+    f, u = trace.gather_lanes(f, u, trace.live_lanes(u[gk.U_ALIVE]))
+    frozen_check("grid", gk.grid_megakernel_step, gk.grid_megakernel_step_plain,
+                 [s for s in grid_sets if s[0] == "freeze"], f, u, kw1, ds.grid)
+    f, u, scal1, vpr1, geom1 = trace.pack_state(
+        dds, trace.viewport_arrays(cam, MAIN_W, MAIN_H), backend="paged", band_h=MAIN_H,
+        width=MAIN_W, y0=0, seed_y0=0, offset_x=0, spp=paged_iterbench.SPP, number=0,
+        pixels_per_lane=paged_iterbench.M)
+    acc1 = trace.home_accum(None, geom1["p_total"], dev)
+    kw1 = dict(geom1, max_depth=50, skip_tmax=True, k_steps=pk.K_STEPS)
+    f, u, key = pk.paged_megakernel_step(scal1, vpr1, dds.paged, f, u, acc1, **kw1)
+    f, u = trace.gather_lanes(f, u, trace.live_order(key))
+    f, u, _ = pk.paged_megakernel_step(scal1, vpr1, dds.paged, f, u, acc1, **kw1)
+    frozen_check("paged", pk.paged_megakernel_step, pk.paged_megakernel_step_plain,
+                 paged_sets, f, u, kw1, dds.paged)
+
+    phase("probes", f"the frozen checks done at {time.perf_counter() - t0:.1f} s")
+
+    # the three scripts, counted (and by variant)
+    path, totals = script_runner("probes", smi, counters, plain_names, PROBE_KNOBS)
+    for fn in (gk.grid_megakernel_step, pk.paged_megakernel_step):
+        fn.variant_launches = {}
+    rounds = {"SWEEP_ROUNDS": str(PROBE_ROUNDS), "ROUNDS": str(PROBE_ROUNDS)}
+    grid, paged = "grid_megakernel_step", "paged_megakernel_step"
+    dup_variants = ["base", *gk.DUPLICATIONS]
+    for label, argv, env in (("exact", [], {}),
+                             ("fast M=2", ["--mode", "fast"], {"M": str(SWEEP_M)})):
+        med, _ = path(f"grid_ablate {label} SWEEP_ROUNDS={PROBE_ROUNDS}", (grid,),
+                      lambda argv=argv: grid_ablate.main(argv), env=dict(rounds, **env))
+        if sorted(med) != sorted(dup_variants):
+            raise RuntimeError(f"grid_ablate {label}: {med}")
+    for mode in ("exact", "fast"):
+        env = dict(rounds, INVOKES=str(GRID_INVOKES), SWEEP_MODE=mode)
+        med, _ = path(f"grid_iterbench SWEEP_MODE={mode} INVOKES={GRID_INVOKES} "
+                      f"ROUNDS={PROBE_ROUNDS}", (grid,), lambda: grid_iterbench.main([]),
+                      env=env)
+        if len(med) != len(grid_iterbench.VARIANTS.split(",")):
+            raise RuntimeError(f"grid_iterbench {mode}: {med}")
+    med, _ = path(f"paged_iterbench INVOKES={PAGED_INVOKES} ROUNDS={PROBE_ROUNDS}", (paged,),
+                  lambda: paged_iterbench.main([]),
+                  env=dict(rounds, INVOKES=str(PAGED_INVOKES)))
+    if len(med) != len(paged_iterbench.VARIANTS.split(",")):
+        raise RuntimeError(f"paged_iterbench: {med}")
+    by_variant = {grid: dict(gk.grid_megakernel_step.variant_launches),
+                  paged: dict(pk.paged_megakernel_step.variant_launches)}
+    phase("probes", f"launches by variant: {by_variant}")
+    return totals, by_variant
 
 
 def decode_png(path):
@@ -1758,6 +1948,18 @@ def main() -> int:
             raise RuntimeError(f"{name} did not launch in phase 10")
     phase("scripts", f"phase 10 in {time.perf_counter() - t10:.1f} s, launches "
           f"{({k: v for k, v in script_counts.items() if v})}")
+
+    # ---- 11. the section-cost probes ----------------------------------------
+    t11 = time.perf_counter()
+    probe_counts, by_variant = probes_phase(dev, smi, counters, plain_names, regs)
+    for name in records:
+        records[name]["launches"] += probe_counts.get(name, 0)
+    for name, counts in by_variant.items():
+        if not counts:
+            raise RuntimeError(f"{name} launched no variant in phase 11")
+        records[name]["variant_launches"] = counts
+    phase("probes", f"phase 11 in {time.perf_counter() - t11:.1f} s, launches "
+          f"{({k: v for k, v in probe_counts.items() if v})}")
 
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

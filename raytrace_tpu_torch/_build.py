@@ -17,7 +17,12 @@ so threads that launch at once start one build.
 
 The grid kernel's threads per block is a define of its translation unit
 (``-DRT_GRID_BLOCK``), part of the hash, so every block size has a library
-of its own.  ``grid_block()`` resolves it once per process, at the first
+of its own.  So are the section-cost probes' switch sets (``-DRT_ABLATE``, a
+bitmask of ``ops.gridkernel.SWITCHES`` or ``ops.pagedkernel.SWITCHES``): a
+variant library holds only the kernel it varies, the production library
+(both masks 0) has no switch define at all, and ``build_many`` starts every
+missing variant's nvcc at once.  Libraries export the same symbols and are
+loaded side by side (ctypes' ``RTLD_LOCAL``).  ``grid_block()`` resolves it once per process, at the first
 build: ``RAYTRACE_TORCH_GRID_BLOCK`` if set, else the ``block`` that the
 autotuner's block sweep cached for CUDA device 0's kind
 (``runtime/autotune.py``), else 128.
@@ -35,6 +40,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,6 +60,7 @@ ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
 LIB_NAME = "libraytrace_kernels.so"
 GRID_SOURCE = "gridkernel.cu"
+PAGED_SOURCE = "pagedkernel.cu"
 GRID_BLOCK_ENV = "RAYTRACE_TORCH_GRID_BLOCK"
 DEFAULT_GRID_BLOCK = 128
 # PTX instructions that would break the IEEE contract (fast-math lowering)
@@ -64,12 +71,12 @@ _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # 8 pointers, 14 ints, pmin, device, stream
     "rt_megakernel_step": [_VOIDP] * 8 + [_INT] * 14 + [_FLOAT, _INT, _VOIDP],
-    # 14 pointers (tattrs and passign may be NULL), 19 ints, pmin, device, stream
-    "rt_grid_megakernel_step": [_VOIDP] * 14 + [_INT] * 19 + [_FLOAT, _INT, _VOIDP],
+    # 14 pointers (tattrs and passign may be NULL), 22 ints, pmin, device, stream
+    "rt_grid_megakernel_step": [_VOIDP] * 14 + [_INT] * 22 + [_FLOAT, _INT, _VOIDP],
     # five, n_slots, iterstats, device; out [4]
     "rt_grid_occupancy": [_INT] * 4 + [_VOIDP],
-    # 13 pointers, 17 ints, pmin, device, stream
-    "rt_paged_megakernel_step": [_VOIDP] * 13 + [_INT] * 17 + [_FLOAT, _INT, _VOIDP],
+    # 13 pointers, 18 ints, pmin, device, stream
+    "rt_paged_megakernel_step": [_VOIDP] * 13 + [_INT] * 18 + [_FLOAT, _INT, _VOIDP],
     # o, d, table, t, attrs; n, s_rows, device; stream
     "rt_intersect_shade": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     # device; out [4]
@@ -121,84 +128,133 @@ def grid_block() -> int:
     return resolve_grid_block(torch.cuda.get_device_name(0))
 
 
-def _defines(name: str, block: int) -> list:
-    return [f"-DRT_GRID_BLOCK={block}"] if name == GRID_SOURCE else []
+def _defines(name: str, block: int, grid: int = 0, paged: int = 0) -> list:
+    """nvcc defines of source ``name``: the grid kernel's block, and a switch
+    mask where it is not 0."""
+    mask = {GRID_SOURCE: grid, PAGED_SOURCE: paged}.get(name, 0)
+    block_def = [f"-DRT_GRID_BLOCK={block}"] if name == GRID_SOURCE else []
+    return block_def + ([f"-DRT_ABLATE={mask}"] if mask else [])
 
 
-def source_hash(block: int) -> str:
+def variant_sources(grid: int = 0, paged: int = 0) -> tuple:
+    """The sources of a library: all of ``SOURCES`` for the production
+    build, else the kernels whose switch mask is set."""
+    if not grid and not paged:
+        return SOURCES
+    return tuple(name for name, mask in ((GRID_SOURCE, grid), (PAGED_SOURCE, paged)) if mask)
+
+
+def source_hash(block: int, grid: int = 0, paged: int = 0) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in variant_sources(grid, paged) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-        h.update(" ".join(_defines(name, block)).encode())
+        h.update(" ".join(_defines(name, block, grid, paged)).encode())
     h.update(" ".join((ARCH,) + FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir(block: int) -> Path:
-    return BUILD_ROOT / source_hash(block)
+def build_dir(block: int, grid: int = 0, paged: int = 0) -> Path:
+    return BUILD_ROOT / source_hash(block, grid, paged)
 
 
-def _run_all(cmds) -> str:
-    """Run the nvcc commands at once; their joined output, or raise."""
+def _run_all(cmds, counts=None) -> list:
+    """Run the nvcc commands at once, or raise; the joined output of each
+    run of ``counts`` consecutive commands (default: one run of all)."""
     procs = [subprocess.Popen(c, cwd=CSRC, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
-    return "".join(outs)
+    res, i = [], 0
+    for n in counts or [len(cmds)]:
+        res.append("".join(outs[i : i + n]))
+        i += n
+    return res
 
 
-def build(block: int = None) -> dict:
-    """Build the shared library and one PTX file per kernel source, with
-    the grid kernel at ``block`` threads per block (default ``grid_block()``),
-    if they are missing.  Returns {"lib", "ptx", "seconds", "log", "block"};
-    ``seconds`` is 0 when nothing was built, ``log`` holds ptxas' register
-    report."""
-    block = grid_block() if block is None else check_block(block)
-    out = build_dir(block)
-    lib = out / LIB_NAME
-    ptx = {name: out / (Path(name).stem + ".ptx") for name in SOURCES}
-    log_path = out / "build.log"
-    if lib.exists() and all(p.exists() for p in ptx.values()):
-        return dict(lib=lib, ptx=ptx, seconds=0.0, block=block,
-                    log=log_path.read_text() if log_path.exists() else "")
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
+def build(block: int = None, grid: int = 0, paged: int = 0) -> dict:
+    """Build the shared library, with the grid kernel at ``block`` threads
+    per block (default ``grid_block()``) and the switch masks ``grid`` and
+    ``paged``, if it is missing.  Returns {"lib", "ptx", "seconds", "log",
+    "block", "grid", "paged"}; ``ptx`` holds one PTX file per source of the
+    production build (none for a variant), ``seconds`` is 0 when nothing was
+    built, ``log`` holds ptxas' register report."""
+    return build_many([(block, grid, paged)])[0]
+
+
+def build_many(keys) -> list:
+    """``build`` for each (block, grid mask, paged mask) of ``keys``: every
+    missing library's nvcc processes are started at once, then their links
+    at once; ``seconds`` is the wall of the whole build."""
+    keys = [(grid_block() if b is None else check_block(b), int(g), int(p))
+            for b, g, p in keys]
+    plan = {}
+    for key in dict.fromkeys(keys):
+        out = build_dir(*key)
+        ptx = ({} if key[1] or key[2] else
+               {name: out / (Path(name).stem + ".ptx") for name in SOURCES})
+        built = (out / LIB_NAME).exists() and all(p.exists() for p in ptx.values())
+        plan[key] = (out, ptx, built)
+    todo = [key for key, (_, _, built) in plan.items() if not built]
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=out) as tmp:
-        objs = [str(Path(tmp) / (Path(name).stem + ".o")) for name in SOURCES]
-        log = _run_all(
-            [[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
-              *_defines(name, block), "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
-              "-o", obj, name]
-             for name, obj in zip(SOURCES, objs)]
-            + [[nvcc, "-arch=compute_90a", *FLAGS, *_defines(name, block), "-ptx", "-o",
-                str(Path(tmp) / dst.name), name] for name, dst in ptx.items()])
-        tmp_lib = Path(tmp) / LIB_NAME
-        log += _run_all([[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}",
-                          "-shared", "-o", str(tmp_lib), *objs]])
-        for dst in ptx.values():
-            os.replace(Path(tmp) / dst.name, dst)
-        # the library last: its presence marks a complete build
-        (Path(tmp) / "build.log").write_text(log)
-        os.replace(Path(tmp) / "build.log", log_path)
-        os.replace(tmp_lib, lib)
-    return dict(lib=lib, ptx=ptx, seconds=time.perf_counter() - t0, log=log, block=block)
+    if todo:
+        nvcc = nvcc_path()
+        compiles, counts, links, tmps = [], [], [], []
+        for key in todo:
+            out, ptx, _ = plan[key]
+            out.mkdir(parents=True, exist_ok=True)
+            tmp = Path(tempfile.mkdtemp(dir=out))
+            tmps.append(tmp)
+            srcs = variant_sources(key[1], key[2])
+            objs = [str(tmp / (Path(name).stem + ".o")) for name in srcs]
+            compiles += [[nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", *FLAGS,
+                          *_defines(name, *key), "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+                          "-c", "-o", obj, name] for name, obj in zip(srcs, objs)]
+            compiles += [[nvcc, "-arch=compute_90a", *FLAGS, *_defines(name, *key), "-ptx",
+                          "-o", str(tmp / dst.name), name] for name, dst in ptx.items()]
+            counts.append(len(srcs) + len(ptx))
+            links.append([nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", "-shared",
+                          "-o", str(tmp / LIB_NAME), *objs])
+        try:
+            logs = _run_all(compiles, counts)
+            link_logs = _run_all(links, [1] * len(links))
+            for key, tmp, log, link_log in zip(todo, tmps, logs, link_logs):
+                out, ptx, _ = plan[key]
+                for dst in ptx.values():
+                    os.replace(tmp / dst.name, dst)
+                # the library last: its presence marks a complete build
+                (tmp / "build.log").write_text(log + link_log)
+                os.replace(tmp / "build.log", out / "build.log")
+                os.replace(tmp / LIB_NAME, out / LIB_NAME)
+        finally:
+            for tmp in tmps:
+                shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    res = []
+    for key in keys:
+        out, ptx, built = plan[key]
+        log_path = out / "build.log"
+        res.append(dict(lib=out / LIB_NAME, ptx=ptx, seconds=0.0 if built else seconds,
+                        log=log_path.read_text() if log_path.exists() else "",
+                        block=key[0], grid=key[1], paged=key[2]))
+    return res
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
-    """{entry function: {"registers", "spill_stores"}} of the instances of
-    ``kernel`` in a build's ptxas log."""
+    """{entry function: {"registers", "frame", "spill_stores"}} of the
+    instances of ``kernel`` in a build's ptxas log (frame and spills in
+    bytes)."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             cur = name if kernel in name else None
             if cur:
-                out[cur] = {"registers": 0, "spill_stores": 0}
+                out[cur] = {"registers": 0, "frame": 0, "spill_stores": 0}
         elif cur and "bytes spill stores" in ln:
+            out[cur]["frame"] = int(ln.split("bytes stack frame")[0].split()[-1])
             out[cur]["spill_stores"] = int(ln.split("bytes stack frame,")[1].split()[0])
         elif cur and "Used" in ln and "registers" in ln:
             out[cur]["registers"] = int(ln.split("Used")[1].split()[0])
@@ -219,27 +275,61 @@ def forbidden_ptx(ptx_paths) -> dict:
 _LOAD_LOCK = threading.Lock()
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use; one build and one load
-    however many threads ask at once)."""
+def library(grid: int = 0, paged: int = 0) -> ctypes.CDLL:
+    """The loaded kernel library at this process's grid block and the
+    switch masks ``grid`` and ``paged`` (built on first use; one build and
+    one load however many threads ask at once).  A variant library exports
+    only the kernels it varies."""
     with _LOAD_LOCK:
-        return _load_library()
+        return _load_library(grid_block(), int(grid), int(paged))
 
 
 @functools.lru_cache(maxsize=None)
-def _load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()["lib"]))
+def _load_library(block: int, grid: int, paged: int) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(block, grid, paged)["lib"]))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _INT
-    lib.rt_error_string.argtypes = [_INT]
-    lib.rt_error_string.restype = ctypes.c_char_p
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _INT
+    if getattr(lib, "rt_error_string", None) is not None:  # megakernel.cu's
+        lib.rt_error_string.argtypes = [_INT]
+        lib.rt_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def error_string(err: int) -> str:
     return f"{err} ({library().rt_error_string(err).decode()})"
+
+
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_INSTR = re.compile(  # /*addr*/ [@predicate] OPCODE args ;
+    r"/\*[0-9a-f]{4,}\*/\s+((?:@!?U?P[T0-9]+\s+)?[A-Z][A-Z0-9_.]*[^;]*);")
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_text(lib: str) -> str:
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def sass(lib) -> dict:
+    """{function: [instruction text]} of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc; one dump per library
+    and process)."""
+    text = _sass_text(str(lib))
+    funcs, name = {}, None
+    for line in text.splitlines():
+        f = _SASS_FUNCTION.search(line)
+        if f:
+            name = f.group(1)
+            funcs[name] = []
+        elif name is not None:
+            m = _SASS_INSTR.search(line)
+            if m:
+                funcs[name].append(" ".join(m.group(1).split()))
+    return funcs
 
 
 def occupancy(kernel: str, *args: int) -> dict:

@@ -51,6 +51,19 @@
 // ITER is the iterstats probe: red counts the issued iterations of the
 // lane's current (pixel, call) chunk instead of colour.
 //
+// The section-cost probes (scripts/grid_ablate.py, grid_iterbench.py):
+// -DRT_ABLATE=<mask> builds a variant, the bits of ops/gridkernel.py
+// SWITCHES below; the production build has no mask, and every switch is a
+// compile-time false that leaves its code out.  Duplications (GLOBAL2 ...
+// CAMERA2) run a section a second time on inputs made opaque with the
+// launch's zero `z` and consume the result with rt::keep, so the image is
+// bit-identical; removals (CUT_*) replace a section with a passthrough of
+// live values (the JAX package's meaning, which the plain version follows);
+// FREEZE pins the march (a cell's advance is consumed and the cell stays)
+// and makes every live lane run every section each iteration, the results a
+// lane's state does not take consumed, where the production kernel skips
+// them by branch.
+//
 // State: row-major [rows, n] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy,
 // 8-10 thr, 11 t_best, 12 t_end, 13 t_nx, 14 t_nz, 15 bkey, 16-18 cur;
 // int32 rows (u32 bits) 0 seed, 1 m, 2 sidx, 3 depth, 4 alive, 5 marching,
@@ -81,6 +94,33 @@ static_assert(BLOCK >= 32 && BLOCK % 32 == 0 && 1024 % BLOCK == 0,
 constexpr int MIN_BLOCKS = 1024 / BLOCK;  // resident blocks per SM asked of ptxas
 constexpr int MAX_G = 32;  // models/grid.py MAX_GTAB: rows of gtab and gttab
 
+#ifndef RT_ABLATE
+#define RT_ABLATE 0
+#endif
+// the probe switches: bit i is ops/gridkernel.py SWITCHES[i]
+constexpr bool GLOBAL2 = RT_ABLATE & (1u << 0);
+constexpr bool FETCH2 = RT_ABLATE & (1u << 1);
+constexpr bool ISECT2 = RT_ABLATE & (1u << 2);
+constexpr bool DDA2 = RT_ABLATE & (1u << 3);
+constexpr bool RESOLVE2 = RT_ABLATE & (1u << 4);
+constexpr bool SHADE2 = RT_ABLATE & (1u << 5);
+constexpr bool CAMERA2 = RT_ABLATE & (1u << 6);
+constexpr bool CUT_TEA = RT_ABLATE & (1u << 7);
+constexpr bool CUT_GLOBALS = RT_ABLATE & (1u << 8);
+constexpr bool CUT_INIT = RT_ABLATE & (1u << 9);
+constexpr bool CUT_FETCH = RT_ABLATE & (1u << 10);
+constexpr bool CUT_QUAD = RT_ABLATE & (1u << 11);
+constexpr bool CUT_RESOLVE = RT_ABLATE & (1u << 12);
+constexpr bool CUT_SHADE = RT_ABLATE & (1u << 13);
+constexpr bool CUT_SIN = RT_ABLATE & (1u << 14);
+constexpr bool CUT_CAMERA = RT_ABLATE & (1u << 15);
+constexpr bool FREEZE = RT_ABLATE & (1u << 16);
+
+struct Probe {  // a variant's launch values: the opaque zero, the table sizes
+  uint32_t zero;
+  int n_cells, n_ids;
+};
+
 // gscal slots (models/grid.py G_*)
 constexpr int G_XLO = 0, G_XHI = 1, G_YLO = 2, G_YHI = 3, G_ZLO = 4, G_ZHI = 5;
 constexpr int G_CMINX = 6, G_CMINZ = 7, G_NCZ = 8, G_CY = 9, G_CMAXX = 10,
@@ -105,7 +145,18 @@ struct GridParams {
   int n, m_slots, n_lanes, p_total, width, max_depth, k_steps, j_steps, tab_n;
   bool skip_tmax;
   rt::RR rr;
+#if RT_ABLATE
+  Probe pr;
+#endif
 };
+
+__device__ __forceinline__ Probe probe(const GridParams& P) {
+#if RT_ABLATE
+  return P.pr;
+#else
+  return Probe{0u, 0, 0};
+#endif
+}
 
 // The pixel of slot m of the lane with home index lane0: M strided pixels
 // per lane (ops/trace.py), or the balanced table's entry; p_total (no
@@ -187,6 +238,8 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
   };
   int cidx = P.uin[U_CALL * n + lane];
   int cur_spp = chunk_spp(cidx);
+  [[maybe_unused]] const Probe pr = probe(P);
+  [[maybe_unused]] const uint32_t z = pr.zero;
 
   for (int it = 0; it < P.k_steps && alive; ++it) {
     if (ITER) cur_x = cur_x + 1.0f;  // every issued iteration, marching ones too
@@ -194,73 +247,150 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
 
     // ---- segment start: globals + grid clip + DDA init -------------------
     const bool need = !marching;
-    if (need) {
+    // FREEZE: a marching lane runs the segment start too and keeps none of it
+    [[maybe_unused]] const float f_tb = t_b, f_bkey = bkey, f_te = t_end;
+    [[maybe_unused]] const float f_tnx = t_nx, f_tnz = t_nz;
+    [[maybe_unused]] const int f_icx = icx, f_icz = icz;
+    if (FREEZE || need) {
       t_b = rt::BIG;
       bkey = TAG;
-      for (int k = 0; k < P.n_g; ++k) {
-        const float4 g = s_g[k];
-        const float tc = rt::quadratic(q, g.x, g.y, g.z, g.w, P.skip_tmax);
-        if (tc < t_b) {
-          t_b = tc;
-          bkey = TAG + s_gid[k];
+      if constexpr (GLOBAL2) {  // the globals again, their minimum consumed
+        float t2 = rt::BIG;
+        for (int k = 0; k < P.n_g; ++k) {
+          const float4 g = s_g[k];
+          const float tc = rt::quadratic(q, rt::opaque(g.x, z), g.y, g.z, g.w, P.skip_tmax);
+          if (tc < t2) t2 = tc;
+        }
+        t_b = rt::keep(t_b, t2, z);
+      }
+      if constexpr (!CUT_GLOBALS) {
+        for (int k = 0; k < P.n_g; ++k) {
+          const float4 g = s_g[k];
+          const float tc = rt::quadratic(q, g.x, g.y, g.z, g.w, P.skip_tmax);
+          if (tc < t_b) {
+            t_b = tc;
+            bkey = TAG + s_gid[k];
+          }
         }
       }
     }
     // one reciprocal per axis, shared by the slab clip and the DDA steps
     const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
-    if (need) {
-      float t0x, t1x, t0y, t1y, t0z, t1z;
-      rt::slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], t0x, t1x);
-      rt::slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], t0y, t1y);
-      rt::slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], t0z, t1z);
-      const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, rt::T_MIN));
-      const float t_end_n = rt::jmin(rt::jmin(t1x, t1y), t1z);
-      t_end = t_end_n;
-      if (t_start <= t_end_n && t_start < t_b) {  // march0
-        const float px0 = ox + t_start * dx;
-        const float pz0 = oz + t_start * dz;
-        const float icx_n = rt::jmin(rt::jmax(floorf(px0 * inv_s + 0.5f), cminx), cmaxx);
-        const float icz_n = rt::jmin(rt::jmax(floorf(pz0 * inv_s + 0.5f), cminz), cmaxz);
-        const float bx = (icx_n + (dx >= 0.0f ? 0.5f : -0.5f)) * s_;
-        const float bz = (icz_n + (dz >= 0.0f ? 0.5f : -0.5f)) * s_;
-        t_nx = dx == 0.0f ? rt::BIG : (bx - ox) * inv_x;
-        t_nz = dz == 0.0f ? rt::BIG : (bz - oz) * inv_z;
-        icx = (int)icx_n;
-        icz = (int)icz_n;
-        marching = true;
+    if constexpr (!CUT_INIT) {
+      if (FREEZE || need) {
+        float t0x, t1x, t0y, t1y, t0z, t1z;
+        rt::slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], t0x, t1x);
+        rt::slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], t0y, t1y);
+        rt::slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], t0z, t1z);
+        const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, rt::T_MIN));
+        const float t_end_n = rt::jmin(rt::jmin(t1x, t1y), t1z);
+        t_end = t_end_n;
+        if (t_start <= t_end_n && t_start < t_b) {  // march0
+          const float px0 = ox + t_start * dx;
+          const float pz0 = oz + t_start * dz;
+          const float icx_n = rt::jmin(rt::jmax(floorf(px0 * inv_s + 0.5f), cminx), cmaxx);
+          const float icz_n = rt::jmin(rt::jmax(floorf(pz0 * inv_s + 0.5f), cminz), cmaxz);
+          const float bx = (icx_n + (dx >= 0.0f ? 0.5f : -0.5f)) * s_;
+          const float bz = (icz_n + (dz >= 0.0f ? 0.5f : -0.5f)) * s_;
+          t_nx = dx == 0.0f ? rt::BIG : (bx - ox) * inv_x;
+          t_nz = dz == 0.0f ? rt::BIG : (bz - oz) * inv_z;
+          icx = (int)icx_n;
+          icz = (int)icz_n;
+          marching = true;
+        }
+      }
+    }
+    if constexpr (FREEZE) {
+      if (!need) {
+        t_b = rt::keep(f_tb, t_b, z);
+        bkey = rt::keep(f_bkey, bkey, z);
+        t_end = rt::keep(f_te, t_end, z);
+        t_nx = rt::keep(f_tnx, t_nx, z);
+        t_nz = rt::keep(f_tnz, t_nz, z);
+        icx = rt::keep(f_icx, icx, z);
+        icz = rt::keep(f_icz, icz, z);
       }
     }
 
     // ---- DDA march: up to j_steps cells ------------------------------------
-    if (marching) {
+    // FREEZE: every lane marches, and a lane that was not marching keeps
+    // its winner; the advance is consumed and the cell stays
+    const bool m0 = marching;
+    [[maybe_unused]] const float m_tb = t_b, m_bkey = bkey;
+    if (FREEZE || marching) {
       const int step_x = dx >= 0.0f ? 1 : -1;
       const int step_z = dz >= 0.0f ? 1 : -1;
       const float dt_x = dx == 0.0f ? rt::BIG : fabsf(inv_x) * s_;
       const float dt_z = dz == 0.0f ? rt::BIG : fabsf(inv_z) * s_;
-      for (int j = 0; j < P.j_steps && marching; ++j) {
-        const int cid = (int)(((float)icx - cminx) * ncz + ((float)icz - cminz));
+      for (int j = 0; j < P.j_steps && (FREEZE || marching); ++j) {
+        int cid = (int)(((float)icx - cminx) * ncz + ((float)icz - cminz));
+        if constexpr (FREEZE) cid = min(max(cid, 0), pr.n_cells - 1);  // a stale cell
         const float4* cell = P.cells + (size_t)cid * P.stride4;
         // slot s: (cx, cz, kc, id), or (cx, cy, cz, kc) with the id at float
-        // 4 * n_slots + s of the record (read only when the slot wins)
+        // 4 * n_slots + s of the record (read only when the slot wins);
+        // CUT_FETCH: no record, every value is ox
+        auto slot = [&](int s) {
+          if constexpr (CUT_FETCH) return make_float4(ox, ox, ox, ox);
+          else return __ldg(cell + s);
+        };
         auto test = [&](const float4 g, int s) {
-          const float tc = rt::quadratic(q, g.x, FIVE ? g.y : cy_u, FIVE ? g.z : g.y,
-                                         FIVE ? g.w : g.z, P.skip_tmax);
+          float tc;
+          if constexpr (CUT_QUAD) {  // the slot's other values consumed
+            tc = rt::keep(rt::keep(g.x + oy, g.y, z), g.z, z);
+          } else {
+            tc = rt::quadratic(q, g.x, FIVE ? g.y : cy_u, FIVE ? g.z : g.y,
+                               FIVE ? g.w : g.z, P.skip_tmax);
+          }
           if (tc < t_b) {
             t_b = tc;
-            bkey = FIVE ? reinterpret_cast<const float*>(cell)[4 * n_slots + s] : g.w;
+            if constexpr (CUT_FETCH) bkey = ox;
+            else bkey = FIVE ? reinterpret_cast<const float*>(cell)[4 * n_slots + s] : g.w;
           }
+        };
+        // FETCH2: the next cell's record too; ISECT2: the slots' quadratics
+        // again; each consumed
+        const float4* cell2 = P.cells;
+        if constexpr (FETCH2)
+          cell2 += (size_t)(min(cid + 1, pr.n_cells - 1) ^ (int)z) * P.stride4;
+        auto dup = [&](float4 g, int s) {
+          if constexpr (FETCH2) {
+            const float4 g2 = __ldg(cell2 + s);
+            g.x = rt::keep(g.x, g2.x, z);
+            g.y = rt::keep(g.y, g2.y, z);
+            g.z = rt::keep(g.z, g2.z, z);
+            g.w = rt::keep(g.w, g2.w, z);
+          }
+          return g;
+        };
+        float t2 = t_b;
+        auto isect2 = [&](const float4 g) {
+          const float tc = rt::quadratic(q, rt::opaque(g.x, z), FIVE ? g.y : cy_u,
+                                         FIVE ? g.z : g.y, FIVE ? g.w : g.z, P.skip_tmax);
+          if (tc < t2) t2 = tc;
         };
         if (NS > 0) {
           float4 g[NS > 0 ? NS : 1];
 #pragma unroll
-          for (int s = 0; s < NS; ++s) g[s] = __ldg(cell + s);
+          for (int s = 0; s < NS; ++s) g[s] = dup(slot(s), s);
 #pragma unroll
           for (int s = 0; s < NS; ++s) test(g[s], s);
+          if constexpr (ISECT2) {
+#pragma unroll
+            for (int s = 0; s < NS; ++s) isect2(g[s]);
+          }
         } else {
-          for (int s = 0; s < n_slots; ++s) test(__ldg(cell + s), s);
+          for (int s = 0; s < n_slots; ++s) {
+            const float4 g = dup(slot(s), s);
+            test(g, s);
+            if constexpr (ISECT2) isect2(g);
+          }
         }
+        if constexpr (ISECT2) t_b = rt::keep(t_b, t2, z);
         const float t_exit = rt::jmin(t_nx, t_nz);
         const bool cont = t_exit < t_b && t_exit < t_end;
+        [[maybe_unused]] const int a_icx = icx, a_icz = icz;
+        [[maybe_unused]] const float a_tnx = t_nx, a_tnz = t_nz;
+        [[maybe_unused]] const bool a_march = marching;
         if (cont) {
           if (t_nx <= t_nz) {
             icx = min(max(icx + step_x, icminx), icmaxx);
@@ -271,16 +401,78 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
           }
         }
         marching = cont;
+        if constexpr (DDA2) {  // the advance again from t_nx + 0.5, consumed
+          const float tnx2 = rt::opaque(t_nx, z) + 0.5f;
+          const float t_exit2 = rt::jmin(tnx2, t_nz);
+          const bool cont2 = marching && t_exit2 < t_b && t_exit2 < t_end;
+          int icx2 = icx, icz2 = icz;
+          float tnx3 = t_nx, tnz3 = t_nz;
+          if (cont2) {
+            if (tnx2 <= t_nz) {
+              icx2 = min(max(icx + step_x, icminx), icmaxx);
+              tnx3 = t_nx + dt_x;
+            } else {
+              icz2 = min(max(icz + step_z, icminz), icmaxz);
+              tnz3 = t_nz + dt_z;
+            }
+          }
+          icx = rt::keep(icx, icx2, z);
+          icz = rt::keep(icz, icz2, z);
+          t_nx = rt::keep(t_nx, tnx3, z);
+          t_nz = rt::keep(t_nz, tnz3, z);
+          marching = rt::keep(marching, cont2, z);
+        }
+        if constexpr (FREEZE) {
+          icx = rt::keep(a_icx, icx, z);
+          icz = rt::keep(a_icz, icz, z);
+          t_nx = rt::keep(a_tnx, t_nx, z);
+          t_nz = rt::keep(a_tnz, t_nz, z);
+          marching = rt::keep(a_march, marching, z);
+        }
       }
     }
-    if (marching) continue;  // segment still open: nothing else changes
+    if constexpr (FREEZE) {
+      if (!m0) {
+        t_b = rt::keep(m_tb, t_b, z);
+        bkey = rt::keep(m_bkey, bkey, z);
+      }
+    }
+    if (marching) {
+      if constexpr (!FREEZE) continue;  // segment still open: nothing else changes
+    }
+    // FREEZE: a lane still marching runs the rest too and keeps none of it
+    [[maybe_unused]] const bool frozen = marching;
+    [[maybe_unused]] const float f_ox = ox, f_oy = oy, f_oz = oz;
+    [[maybe_unused]] const float f_dx = dx, f_dy = dy, f_dz = dz;
+    [[maybe_unused]] const float f_fx = fx, f_fy = fy, f_tx = tx, f_ty = ty, f_tz = tz;
+    [[maybe_unused]] const float f_cx = cur_x, f_cy = cur_y, f_cz = cur_z;
+    [[maybe_unused]] const uint32_t f_seed = seed;
+    [[maybe_unused]] const int f_mrow = mrow, f_sidx = sidx, f_depth = depth;
+    [[maybe_unused]] const int f_cidx = cidx, f_cspp = cur_spp;
 
     // ---- winner resolution: bkey (sphere id) -> attrs ----------------------
     const bool hit = t_b < rt::BIG;
     const bool is_direct = bkey >= TAG;
-    const int bidx = (int)(is_direct ? bkey - TAG : bkey);
-    const float4 a0 = __ldg(P.attrs + 2 * bidx);
-    const float4 a1 = __ldg(P.attrs + 2 * bidx + 1);
+    int bidx = (int)(is_direct ? bkey - TAG : bkey);
+    if constexpr (CUT_FETCH) {  // an id made of ox: outside the table, entry id & 127
+      if ((unsigned)bidx >= (unsigned)pr.n_ids) bidx = bidx & 127;
+    }
+    float4 a0, a1;
+    if constexpr (CUT_RESOLVE) {
+      a0 = make_float4(bkey, bkey, bkey, bkey);
+      a1 = a0;
+    } else {
+      a0 = __ldg(P.attrs + 2 * bidx);
+      a1 = __ldg(P.attrs + 2 * bidx + 1);
+    }
+    if constexpr (RESOLVE2) {  // the next id's record too, consumed
+      const int b2 = min(bidx + 1, pr.n_ids - 1) ^ (int)z;
+      const float4 c0 = __ldg(P.attrs + 2 * b2), c1 = __ldg(P.attrs + 2 * b2 + 1);
+      a0 = make_float4(rt::keep(a0.x, c0.x, z), rt::keep(a0.y, c0.y, z),
+                       rt::keep(a0.z, c0.z, z), rt::keep(a0.w, c0.w, z));
+      a1 = make_float4(rt::keep(a1.x, c1.x, z), rt::keep(a1.y, c1.y, z),
+                       rt::keep(a1.z, c1.z, z), rt::keep(a1.w, c1.w, z));
+    }
     rt::Hit h;
     h.mat = a0.x;
     h.c0x = a0.y; h.c0y = a0.z; h.c0z = a0.w;
@@ -299,7 +491,33 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
         }
       }
     }
-    const rt::Shade s = rt::shade(q, t_b, seed, h);
+    rt::Shade s;
+    if constexpr (CUT_SHADE) {  // the ray passes through: point o, albedo and scatter d
+      // (the winner's attributes consumed, so their loads stay)
+      s.px = rt::keep(ox, rt::keep(h.mat, rt::keep(h.c0x, rt::keep(h.c0y, h.c0z, z), z), z),
+                      z);
+      s.py = rt::keep(oy, rt::keep(h.fuzz, rt::keep(h.cenx, rt::keep(h.ceny, h.cenz, z), z), z),
+                      z);
+      s.pz = rt::keep(oz, rt::keep(h.tex, rt::keep(h.c1x, rt::keep(h.c1y, h.c1z, z), z), z),
+                      z);
+      s.ax = dx; s.ay = dy; s.az = dz;
+      s.sdx = dx; s.sdy = dy; s.sdz = dz;
+      s.does_scatter = hit;
+      s.seed_h = seed;
+    } else {
+      s = rt::shade<CUT_SIN>(q, t_b, seed, h);
+    }
+    if constexpr (SHADE2) {  // the shading again at t_b + 1, consumed
+      const rt::Shade s2 = rt::shade(q, rt::opaque(t_b, z) + 1.0f, seed, h);
+      s.px = rt::keep(s.px, s2.px, z); s.py = rt::keep(s.py, s2.py, z);
+      s.pz = rt::keep(s.pz, s2.pz, z);
+      s.ax = rt::keep(s.ax, s2.ax, z); s.ay = rt::keep(s.ay, s2.ay, z);
+      s.az = rt::keep(s.az, s2.az, z);
+      s.sdx = rt::keep(s.sdx, s2.sdx, z); s.sdy = rt::keep(s.sdy, s2.sdy, z);
+      s.sdz = rt::keep(s.sdz, s2.sdz, z);
+      s.does_scatter = rt::keep(s.does_scatter, s2.does_scatter, z);
+      s.seed_h = rt::keep(s.seed_h, s2.seed_h, z);
+    }
 
     // ---- termination & accumulation (shader.rgen:70-89) -------------------
     const bool deep = depth + 1 >= P.max_depth;
@@ -339,7 +557,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
     if (chunk_done) {
       more_calls = cidx + 1 < s_scal[S_NCALLS];
       const int pix = lane_pixel(P, mrow, lane0);
-      if (mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
+      if ((!FREEZE || !frozen) && mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
         float* a = P.acc + 3 * (size_t)pix;
         a[0] = a[0] + cur_x;
         a[1] = a[1] + cur_y;
@@ -357,40 +575,96 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
     const bool adv = pix_done && m2 < P.m_slots && pix2 < P.p_total;
     const bool renew = more_calls || adv;
     const bool regen = more || renew;
-    if (cont) {
-      float bx = s.sdx, by = s.sdy, bz = s.sdz;
-      rt::norm3(bx, by, bz);
-      ox = s.px; oy = s.py; oz = s.pz;
-      dx = bx; dy = by; dz = bz;
-      tx = ntx; ty = nty; tz = ntz;
-      seed = seed_a;
-      depth = depth + 1;
-    } else if (regen) {
-      uint32_t seed_c = seed_a;
-      if (renew) {  // a fresh TEA seed: the next pixel, or the next call's number
-        uint32_t number = (uint32_t)s_scal[rt::S_NUMBER];
-        const int y0 = s_scal[rt::S_Y0], offx = s_scal[rt::S_OFFX];
-        int px, py;
-        if (adv) {
-          px = pix2 % P.width;
-          py = pix2 / P.width;
-          fx = (float)(offx + px);
-          fy = (float)(y0 + py);
-        } else {
-          px = (int)(fx - (float)offx);
-          py = (int)(fy - (float)y0);
-          number = number + (uint32_t)(cidx + 1);
+    if constexpr (!FREEZE) {
+      if (cont) {
+        float bx = s.sdx, by = s.sdy, bz = s.sdz;
+        rt::norm3(bx, by, bz);
+        ox = s.px; oy = s.py; oz = s.pz;
+        dx = bx; dy = by; dz = bz;
+        tx = ntx; ty = nty; tz = ntz;
+        seed = seed_a;
+        depth = depth + 1;
+      } else if (regen) {
+        uint32_t seed_c = seed_a;
+        if (renew) {  // a fresh TEA seed: the next pixel, or the next call's number
+          uint32_t number = (uint32_t)s_scal[rt::S_NUMBER];
+          const int y0 = s_scal[rt::S_Y0], offx = s_scal[rt::S_OFFX];
+          int px, py;
+          if (adv) {
+            px = pix2 % P.width;
+            py = pix2 / P.width;
+            fx = (float)(offx + px);
+            fy = (float)(y0 + py);
+          } else {
+            px = (int)(fx - (float)offx);
+            py = (int)(fy - (float)y0);
+            number = number + (uint32_t)(cidx + 1);
+          }
+          if constexpr (CUT_TEA) seed_c = seed;
+          else seed_c = rt::pixel_seed(px, s_scal[rt::S_SEEDY0] + py, number);
         }
-        seed_c = rt::pixel_seed(px, s_scal[rt::S_SEEDY0] + py, number);
+        [[maybe_unused]] uint32_t seed2 = seed_c ^ z;
+        if constexpr (!CUT_CAMERA) {
+          const rt::Ray r = rt::camera_ray(seed_c, fx, fy, vpr);
+          ox = r.ox; oy = r.oy; oz = r.oz;
+          dx = r.dx; dy = r.dy; dz = r.dz;
+        }
+        if constexpr (CAMERA2) {  // a second camera ray from seed_c ^ z, consumed
+          const rt::Ray r2 = rt::camera_ray(seed2, fx, fy, vpr);
+          ox = rt::keep(ox, r2.ox, z); oy = rt::keep(oy, r2.oy, z);
+          oz = rt::keep(oz, r2.oz, z); dx = rt::keep(dx, r2.dx, z);
+          dy = rt::keep(dy, r2.dy, z); dz = rt::keep(dz, r2.dz, z);
+          seed_c = rt::keep(seed_c, seed2, z);
+        }
+        tx = 1.0f; ty = 1.0f; tz = 1.0f;
+        seed = seed_c;
+        depth = 0;
+      } else {
+        seed = seed_a;
       }
-      const rt::Ray r = rt::camera_ray(seed_c, fx, fy, vpr);
-      ox = r.ox; oy = r.oy; oz = r.oz;
-      dx = r.dx; dy = r.dy; dz = r.dz;
-      tx = 1.0f; ty = 1.0f; tz = 1.0f;
-      seed = seed_c;
-      depth = 0;
     } else {
-      seed = seed_a;
+      // FREEZE: every lane hashes its fresh seed and casts its camera ray;
+      // each keeps what its branch takes
+      uint32_t number = (uint32_t)s_scal[rt::S_NUMBER];
+      const int y0 = s_scal[rt::S_Y0], offx = s_scal[rt::S_OFFX];
+      int px, py;
+      if (adv) {
+        px = pix2 % P.width;
+        py = pix2 / P.width;
+      } else {
+        px = (int)(fx - (float)offx);
+        py = (int)(fy - (float)y0);
+        number = number + (uint32_t)(cidx + 1);
+      }
+      const float fxn = adv ? (float)(offx + px) : fx;
+      const float fyn = adv ? (float)(y0 + py) : fy;
+      uint32_t fresh = seed;
+      if constexpr (!CUT_TEA) fresh = rt::pixel_seed(px, s_scal[rt::S_SEEDY0] + py, number);
+      uint32_t seed_c = rt::keep(renew ? fresh : seed_a, fresh, z);
+      rt::Ray r{ox, oy, oz, dx, dy, dz};
+      if constexpr (!CUT_CAMERA) r = rt::camera_ray(seed_c, fxn, fyn, vpr);
+      fx = fxn;
+      fy = fyn;
+      if (cont) {
+        float bx = s.sdx, by = s.sdy, bz = s.sdz;
+        rt::norm3(bx, by, bz);
+        ox = s.px; oy = s.py; oz = s.pz;
+        dx = bx; dy = by; dz = bz;
+        tx = ntx; ty = nty; tz = ntz;
+        seed = seed_a;
+        depth = depth + 1;
+      } else if (regen) {
+        ox = r.ox; oy = r.oy; oz = r.oz;
+        dx = r.dx; dy = r.dy; dz = r.dz;
+        tx = 1.0f; ty = 1.0f; tz = 1.0f;
+        seed = seed_c;
+        depth = 0;
+      } else {
+        seed = seed_a;
+      }
+      ox = rt::keep(ox, r.ox, z); oy = rt::keep(oy, r.oy, z); oz = rt::keep(oz, r.oz, z);
+      dx = rt::keep(dx, r.dx, z); dy = rt::keep(dy, r.dy, z); dz = rt::keep(dz, r.dz, z);
+      seed = rt::keep(seed, seed_c, z);
     }
     mrow = m2;
     if (chunk_done) {
@@ -399,6 +673,21 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) grid_megakernel_step_kernel
     }
     sidx = renew ? 1 : sidx + (more ? 1 : 0);
     alive = cont || regen;
+    if constexpr (FREEZE) {
+      if (frozen) {
+        ox = rt::keep(f_ox, ox, z); oy = rt::keep(f_oy, oy, z); oz = rt::keep(f_oz, oz, z);
+        dx = rt::keep(f_dx, dx, z); dy = rt::keep(f_dy, dy, z); dz = rt::keep(f_dz, dz, z);
+        fx = rt::keep(f_fx, fx, z); fy = rt::keep(f_fy, fy, z);
+        tx = rt::keep(f_tx, tx, z); ty = rt::keep(f_ty, ty, z); tz = rt::keep(f_tz, tz, z);
+        cur_x = rt::keep(f_cx, cur_x, z); cur_y = rt::keep(f_cy, cur_y, z);
+        cur_z = rt::keep(f_cz, cur_z, z);
+        seed = rt::keep(f_seed, seed, z);
+        mrow = rt::keep(f_mrow, mrow, z); sidx = rt::keep(f_sidx, sidx, z);
+        depth = rt::keep(f_depth, depth, z); cidx = rt::keep(f_cidx, cidx, z);
+        cur_spp = rt::keep(f_cspp, cur_spp, z);
+        alive = rt::keep(true, alive, z);
+      }
+    }
   }
 
   P.fout[0 * n + lane] = ox; P.fout[1 * n + lane] = oy; P.fout[2 * n + lane] = oz;
@@ -449,7 +738,9 @@ KernelFn pick(int five, int n_slots, int iterstats) {
 
 // Launches one step over the n lanes of the state on `stream`; returns
 // cudaGetLastError() of the launch.  `passign` may be null (M strided
-// pixels per lane); `tab_n` is its row length.
+// pixels per lane); `tab_n` is its row length.  `zero` (always 0), `n_cells`
+// and `n_ids` (the rows of cells and attrs) are read by the probe variants
+// only.
 extern "C" int rt_grid_megakernel_step(
     const int32_t* scal, const float* vpr, const float* gscal, const float* gtab,
     const float* gttab, const float* cells, const float* attrs, const float* tattrs,
@@ -458,6 +749,7 @@ extern "C" int rt_grid_megakernel_step(
     int n_g, int n_gt, int five, int n_slots, int stride,
     int n, int m_slots, int n_lanes, int p_total, int width,
     int max_depth, int k_steps, int j_steps, int skip_tmax, int tab_n, int iterstats,
+    int zero, int n_cells, int n_ids,
     int rr_on, int rr_d0, int rr_d1, float rr_pmin, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -470,6 +762,11 @@ extern "C" int rt_grid_megakernel_step(
                n_g, n_gt, n_slots, stride / 4,
                n, m_slots, n_lanes, p_total, width, max_depth, k_steps,
                j_steps, tab_n, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
+#if RT_ABLATE
+  P.pr = Probe{(uint32_t)zero, n_cells, n_ids};
+#else
+  (void)zero, (void)n_cells, (void)n_ids;
+#endif
   const KernelFn fn = pick(five, n_slots, iterstats);
   const int grid = (n + BLOCK - 1) / BLOCK;
   fn<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(P);

@@ -38,6 +38,17 @@
 //   textured field), so the carried attributes have a compile-time count and
 //   live in registers, not in a stack frame.
 //
+// The section-cost probes (scripts/paged_iterbench.py): -DRT_ABLATE=<mask>
+// builds a variant, the bits of ops/pagedkernel.py SWITCHES below; the
+// production build has no mask and leaves every switch's code out.  The
+// removals (CUT_*) replace a section with a passthrough of live values (the
+// JAX package's meaning, which the plain version follows); FREEZE pins the
+// march (the advance is consumed and the cell stays) and makes every live
+// lane run every section each iteration -- the lid and attribute loads of
+// every marching lane included, as the JAX kernel's freeze does -- with the
+// results a lane's state does not take consumed through the launch's zero
+// (rt::keep), where the production kernel skips them by branch.
+//
 // State: row-major [rows, n] tensors; f32 rows 0-2 o, 3-5 d, 6 fx, 7 fy, 8-10
 // thr, 11 t_best, 12 t_end, 13 t_nx, 14 t_nz, 15 bkey, 16 wcx, 17 wcz, 18-20
 // cur, 21 + i carried attr i, padding to rf; int32 rows (u32 bits) 0 seed,
@@ -59,6 +70,21 @@ constexpr int BLOCK = 128;
 // and a dead lane (sorted last, then dropped)
 constexpr int KEY_MISS = 1 << 30, KEY_DEAD = 0x7fffffff;
 constexpr float KEY_BIG = 3.0e30f;  // the key's degenerate-slab bound
+
+#ifndef RT_ABLATE
+#define RT_ABLATE 0
+#endif
+// the probe switches: bit i is ops/pagedkernel.py SWITCHES[i]
+constexpr bool CUT_GLOBALS = RT_ABLATE & (1u << 0);
+constexpr bool CUT_INIT = RT_ABLATE & (1u << 1);
+constexpr bool CUT_FETCH = RT_ABLATE & (1u << 2);
+constexpr bool CUT_QUAD = RT_ABLATE & (1u << 3);
+constexpr bool CUT_RESOLVE = RT_ABLATE & (1u << 4);
+constexpr bool CUT_GSEL = RT_ABLATE & (1u << 5);
+constexpr bool CUT_SHADE = RT_ABLATE & (1u << 6);
+constexpr bool CUT_TEA = RT_ABLATE & (1u << 7);
+constexpr bool CUT_CAMERA = RT_ABLATE & (1u << 8);
+constexpr bool FREEZE = RT_ABLATE & (1u << 9);
 
 // gscal slots (models/paged_grid.py P_*)
 constexpr int P_XLO = 0, P_XHI = 1, P_YLO = 2, P_YHI = 3, P_ZLO = 4, P_ZHI = 5;
@@ -83,7 +109,18 @@ struct PagedParams {
   int n, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps;
   bool skip_tmax;
   rt::RR rr;
+#if RT_ABLATE
+  uint32_t zero;  // the probes' opaque zero (0 at run time)
+#endif
 };
+
+__device__ __forceinline__ uint32_t probe_zero(const PagedParams& P) {
+#if RT_ABLATE
+  return P.zero;
+#else
+  return 0u;
+#endif
+}
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
@@ -187,51 +224,80 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
   bool marching = P.uin[U_MARCH * n + lane] != 0;
   int cell = P.uin[U_CELL * n + lane];
   const int lane0 = P.uin[U_LANE0 * n + lane];
+  [[maybe_unused]] const uint32_t z = probe_zero(P);
 
   for (int it = 0; it < P.k_steps && alive; ++it) {
     const rt::RayTerms q = rt::ray_terms(ox, oy, oz, dx, dy, dz);
 
     // ---- segment start: globals + clip + fine-DDA init --------------------
     const bool need = !marching;
-    if (need) {
+    // FREEZE: a marching lane runs the segment start too and keeps none of it
+    [[maybe_unused]] const float f_tb = t_b, f_bkey = bkey, f_te = t_end;
+    [[maybe_unused]] const float f_tnx = t_nx, f_tnz = t_nz;
+    [[maybe_unused]] const int f_cell = cell;
+    if (FREEZE || need) {
       t_b = rt::BIG;
       bkey = TAG;
-      for (int k = 0; k < P.n_g; ++k) {
-        const float* g = P.gtab + 16 * k;
-        const float tc = rt::quadratic(q, ld(g + 0), ld(g + 1), ld(g + 2), ld(g + 3),
-                                       P.skip_tmax);
-        if (tc < t_b) {
-          t_b = tc;
-          bkey = TAG + ld(g + 4);
+      if constexpr (!CUT_GLOBALS) {
+        for (int k = 0; k < P.n_g; ++k) {
+          const float* g = P.gtab + 16 * k;
+          const float tc = rt::quadratic(q, ld(g + 0), ld(g + 1), ld(g + 2), ld(g + 3),
+                                         P.skip_tmax);
+          if (tc < t_b) {
+            t_b = tc;
+            bkey = TAG + ld(g + 4);
+          }
         }
       }
     }
     // one reciprocal per axis, shared by the slab clip and the DDA steps
     const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
-    if (need) {
-      float t0x, t1x, t0y, t1y, t0z, t1z;
-      rt::slab_inv(ox, dx, inv_x, gs[P_XLO], gs[P_XHI], t0x, t1x);
-      rt::slab_inv(oy, dy, inv_y, gs[P_YLO], gs[P_YHI], t0y, t1y);
-      rt::slab_inv(oz, dz, inv_z, gs[P_ZLO], gs[P_ZHI], t0z, t1z);
-      const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, rt::T_MIN));
-      const float t_end_n = rt::jmin(rt::jmin(t1x, t1y), t1z);
-      t_end = t_end_n;
-      if (t_start <= t_end_n && t_start < t_b) {  // march0
-        const float px0 = ox + t_start * dx;
-        const float pz0 = oz + t_start * dz;
-        const float icx_n = rt::jmin(rt::jmax(floorf((px0 - fminx) * inv_s), 0.0f), fmaxx);
-        const float icz_n = rt::jmin(rt::jmax(floorf((pz0 - fminz) * inv_s), 0.0f), fmaxz);
-        const float bx = fminx + (icx_n + (dx >= 0.0f ? 1.0f : 0.0f)) * cs;
-        const float bz = fminz + (icz_n + (dz >= 0.0f ? 1.0f : 0.0f)) * cs;
-        t_nx = dx == 0.0f ? rt::BIG : (bx - ox) * inv_x;
-        t_nz = dz == 0.0f ? rt::BIG : (bz - oz) * inv_z;
-        cell = ((int)icx_n << 12) | (int)icz_n;
-        marching = true;
+    if constexpr (!CUT_INIT) {
+      if (FREEZE || need) {
+        float t0x, t1x, t0y, t1y, t0z, t1z;
+        rt::slab_inv(ox, dx, inv_x, gs[P_XLO], gs[P_XHI], t0x, t1x);
+        rt::slab_inv(oy, dy, inv_y, gs[P_YLO], gs[P_YHI], t0y, t1y);
+        rt::slab_inv(oz, dz, inv_z, gs[P_ZLO], gs[P_ZHI], t0z, t1z);
+        const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, rt::T_MIN));
+        const float t_end_n = rt::jmin(rt::jmin(t1x, t1y), t1z);
+        t_end = t_end_n;
+        if (t_start <= t_end_n && t_start < t_b) {  // march0
+          const float px0 = ox + t_start * dx;
+          const float pz0 = oz + t_start * dz;
+          const float icx_n = rt::jmin(rt::jmax(floorf((px0 - fminx) * inv_s), 0.0f), fmaxx);
+          const float icz_n = rt::jmin(rt::jmax(floorf((pz0 - fminz) * inv_s), 0.0f), fmaxz);
+          const float bx = fminx + (icx_n + (dx >= 0.0f ? 1.0f : 0.0f)) * cs;
+          const float bz = fminz + (icz_n + (dz >= 0.0f ? 1.0f : 0.0f)) * cs;
+          t_nx = dx == 0.0f ? rt::BIG : (bx - ox) * inv_x;
+          t_nz = dz == 0.0f ? rt::BIG : (bz - oz) * inv_z;
+          cell = ((int)icx_n << 12) | (int)icz_n;
+          marching = true;
+        }
+      }
+    }
+    if constexpr (FREEZE) {
+      if (!need) {
+        t_b = rt::keep(f_tb, t_b, z);
+        bkey = rt::keep(f_bkey, bkey, z);
+        t_end = rt::keep(f_te, t_end, z);
+        t_nx = rt::keep(f_tnx, t_nx, z);
+        t_nz = rt::keep(f_tnz, t_nz, z);
+        cell = rt::keep(f_cell, cell, z);
       }
     }
 
     // ---- fine-DDA march: one cell ------------------------------------------
-    if (marching) {
+    // FREEZE: every lane marches, and a lane that was not marching keeps
+    // its winner; every marching lane loads its winning slot's lid and
+    // attributes; the advance is consumed and the cell stays
+    const bool m0 = marching;
+    [[maybe_unused]] const float m_tb = t_b, m_bkey = bkey, m_wcx = wcx, m_wcz = wcz;
+    [[maybe_unused]] float m_att[NA];
+    if constexpr (FREEZE) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) m_att[i] = att[i];
+    }
+    if (FREEZE || marching) {
       int icx = cell >> 12, icz = cell & 4095;
       const int sxm = icx >> 3, szm = icz >> 4;
       const int fc = ((icx & 7) << 4) | (icz & 15);
@@ -241,11 +307,23 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
       int wslot = 0;
       for (int s = 0; s < P.n_slots; ++s) {
         const int b0 = W * s;
-        const float s_cx = ld(gp + b0 * 128);
-        const float s_cy = FIVE ? ld(gp + (b0 + 1) * 128) : cy_u;
-        const float s_cz = ld(gp + (b0 + W - 2) * 128);
-        const float s_kc = ld(gp + (b0 + W - 1) * 128);
-        const float tc = rt::quadratic(q, s_cx, s_cy, s_cz, s_kc, P.skip_tmax);
+        float s_cx, s_cy, s_cz, s_kc;
+        if constexpr (CUT_FETCH) {  // no slot values: every one is ox
+          s_cx = ox;
+          s_cy = FIVE ? ox : cy_u;
+          s_cz = ox;
+          s_kc = ox;
+        } else {
+          s_cx = ld(gp + b0 * 128);
+          s_cy = FIVE ? ld(gp + (b0 + 1) * 128) : cy_u;
+          s_cz = ld(gp + (b0 + W - 2) * 128);
+          s_kc = ld(gp + (b0 + W - 1) * 128);
+        }
+        float tc;
+        if constexpr (CUT_QUAD)  // the slot's other values consumed
+          tc = rt::keep(rt::keep(s_cx + oy, s_cy, z), s_kc, z);
+        else
+          tc = rt::quadratic(q, s_cx, s_cy, s_cz, s_kc, P.skip_tmax);
         if (tc < t_b) {
           t_b = tc;
           wslot = s;
@@ -254,19 +332,42 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
           upd_any = true;
         }
       }
-      if (upd_any) {  // the winner improved in this cell: lid, then attrs
-        const float lid_w = ld(P.lids + (page * P.n_slots + wslot) * 128 + fc);
+      [[maybe_unused]] const float u_bkey = bkey;
+      [[maybe_unused]] float u_att[NA];
+      if constexpr (FREEZE) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i) u_att[i] = att[i];
+      }
+      if (FREEZE || upd_any) {  // the winner improved in this cell: lid, then attrs
+        float lid_w;
+        if constexpr (CUT_FETCH) lid_w = ox;
+        else lid_w = ld(P.lids + (page * P.n_slots + wslot) * 128 + fc);
         const float pkey = (float)(sxm * 32 + szm) * 512.0f;
         bkey = pkey + lid_w;
         const int lid = (int)bkey & 511;
+        int blk = lid >> 7;
+        // outside the page's blocks the JAX block select reads block 0
+        if constexpr (CUT_FETCH || FREEZE) blk = blk < P.ab ? blk : 0;
         const float* ap = P.attrs + page * attr_rows * 128 + (lid & 127);
 #pragma unroll
-        for (int v = 0; v < NA; ++v) att[v] = ld(ap + (v * P.ab + (lid >> 7)) * 128);
+        for (int v = 0; v < NA; ++v) {
+          if constexpr (CUT_RESOLVE) att[v] = bkey;
+          else att[v] = ld(ap + (v * P.ab + blk) * 128);
+        }
+        if constexpr (FREEZE) {
+          if (!upd_any) {
+            bkey = rt::keep(u_bkey, bkey, z);
+#pragma unroll
+            for (int i = 0; i < NA; ++i) att[i] = rt::keep(u_att[i], att[i], z);
+          }
+        }
       }
       const float dt_x = dx == 0.0f ? rt::BIG : fabsf(cs * inv_x);
       const float dt_z = dz == 0.0f ? rt::BIG : fabsf(cs * inv_z);
       const float t_exit = rt::jmin(t_nx, t_nz);
       const bool cont = t_exit < t_b && t_exit < t_end;
+      [[maybe_unused]] const int a_icx = icx, a_icz = icz;
+      [[maybe_unused]] const float a_tnx = t_nx, a_tnz = t_nz;
       if (cont) {
         if (t_nx <= t_nz) {
           icx = min(max(icx + (dx >= 0.0f ? 1 : -1), 0), ifmaxx);
@@ -276,38 +377,107 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
           t_nz = t_nz + dt_z;
         }
       }
+      if constexpr (FREEZE) {
+        icx = rt::keep(a_icx, icx, z);
+        icz = rt::keep(a_icz, icz, z);
+        t_nx = rt::keep(a_tnx, t_nx, z);
+        t_nz = rt::keep(a_tnz, t_nz, z);
+      }
       cell = (icx << 12) | icz;
-      marching = cont;
+      if constexpr (FREEZE) marching = rt::keep(marching, cont, z);
+      else marching = cont;
     }
-    if (marching) continue;  // segment still open: nothing else changes
+    if constexpr (FREEZE) {
+      if (!m0) {
+        t_b = rt::keep(m_tb, t_b, z);
+        bkey = rt::keep(m_bkey, bkey, z);
+        wcx = rt::keep(m_wcx, wcx, z);
+        wcz = rt::keep(m_wcz, wcz, z);
+#pragma unroll
+        for (int i = 0; i < NA; ++i) att[i] = rt::keep(m_att[i], att[i], z);
+      }
+    }
+    if (marching) {
+      if constexpr (!FREEZE) continue;  // segment still open: nothing else changes
+    }
+    // FREEZE: a lane still marching runs the rest too and keeps none of it
+    [[maybe_unused]] const bool frozen = marching;
+    [[maybe_unused]] const float f_ox = ox, f_oy = oy, f_oz = oz;
+    [[maybe_unused]] const float f_dx = dx, f_dy = dy, f_dz = dz;
+    [[maybe_unused]] const float f_fx = fx, f_fy = fy, f_tx = tx, f_ty = ty, f_tz = tz;
+    [[maybe_unused]] const float f_cx = cur_x, f_cy = cur_y, f_cz = cur_z;
+    [[maybe_unused]] const uint32_t f_seed = seed;
+    [[maybe_unused]] const int f_mrow = mrow, f_sidx = sidx, f_depth = depth;
 
     // ---- winner resolution: globals from gtab, grid winners carried -------
     const bool hit = t_b < rt::BIG;
     rt::Hit h;
-    if (bkey >= TAG) {
+    if constexpr (!FREEZE) {
+      if (bkey >= TAG) {
+        const float bidx_f = bkey - TAG;
+        const float* g = P.gtab;  // row 0 unless a later row's id matches
+        if constexpr (!CUT_GSEL) {
+          for (int k = 1; k < P.n_g; ++k)
+            if (bidx_f == ld(P.gtab + 16 * k + 4)) g = P.gtab + 16 * k;
+        }
+        h.cenx = ld(g + 0); h.ceny = ld(g + 1); h.cenz = ld(g + 2);
+        h.mat = ld(g + 5); h.tex = ld(g + 6);
+        h.c0x = ld(g + 7); h.c0y = ld(g + 8); h.c0z = ld(g + 9);
+        h.c1x = ld(g + 10); h.c1y = ld(g + 11); h.c1z = ld(g + 12);
+        h.fuzz = ld(g + 13);
+      } else {
+        h.cenx = wcx;
+        h.ceny = FIVE ? att[FIVE ? 5 : 0] : cy_u;  // the center y of a varied field
+        h.cenz = wcz;
+        h.mat = att[0];
+        h.c0x = att[1]; h.c0y = att[2]; h.c0z = att[3];
+        h.fuzz = att[4];
+        // tex, c1.rgb are the last four carried attrs of a textured field
+        h.tex = TEXTURED ? att[NA - 4] : 0.0f;
+        h.c1x = TEXTURED ? att[NA - 3] : 0.0f;
+        h.c1y = TEXTURED ? att[NA - 2] : 0.0f;
+        h.c1z = TEXTURED ? att[NA - 1] : 0.0f;
+      }
+    } else {  // FREEZE: every lane selects its global row too (CUT_GSEL: row 0)
       const float bidx_f = bkey - TAG;
-      const float* g = P.gtab;  // row 0 unless a later row's id matches
-      for (int k = 1; k < P.n_g; ++k)
-        if (bidx_f == ld(P.gtab + 16 * k + 4)) g = P.gtab + 16 * k;
-      h.cenx = ld(g + 0); h.ceny = ld(g + 1); h.cenz = ld(g + 2);
-      h.mat = ld(g + 5); h.tex = ld(g + 6);
-      h.c0x = ld(g + 7); h.c0y = ld(g + 8); h.c0z = ld(g + 9);
-      h.c1x = ld(g + 10); h.c1y = ld(g + 11); h.c1z = ld(g + 12);
-      h.fuzz = ld(g + 13);
-    } else {
-      h.cenx = wcx;
-      h.ceny = FIVE ? att[FIVE ? 5 : 0] : cy_u;  // the center y of a varied field
-      h.cenz = wcz;
-      h.mat = att[0];
-      h.c0x = att[1]; h.c0y = att[2]; h.c0z = att[3];
-      h.fuzz = att[4];
-      // tex, c1.rgb are the last four carried attrs of a textured field
-      h.tex = TEXTURED ? att[NA - 4] : 0.0f;
-      h.c1x = TEXTURED ? att[NA - 3] : 0.0f;
-      h.c1y = TEXTURED ? att[NA - 2] : 0.0f;
-      h.c1z = TEXTURED ? att[NA - 1] : 0.0f;
+      const float* g = P.gtab;
+      if constexpr (!CUT_GSEL) {
+        for (int k = 1; k < P.n_g; ++k)
+          if (bidx_f == ld(P.gtab + 16 * k + 4)) g = P.gtab + 16 * k;
+      }
+      const bool direct = bkey >= TAG;
+      const float gv[12] = {ld(g + 0), ld(g + 1), ld(g + 2), ld(g + 5), ld(g + 6), ld(g + 7),
+                            ld(g + 8), ld(g + 9), ld(g + 10), ld(g + 11), ld(g + 12),
+                            ld(g + 13)};
+      const float cv[12] = {wcx, FIVE ? att[FIVE ? 5 : 0] : cy_u, wcz, att[0],
+                            TEXTURED ? att[NA - 4] : 0.0f, att[1], att[2], att[3],
+                            TEXTURED ? att[NA - 3] : 0.0f, TEXTURED ? att[NA - 2] : 0.0f,
+                            TEXTURED ? att[NA - 1] : 0.0f, att[4]};
+      float hv[12];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) hv[i] = rt::keep(direct ? gv[i] : cv[i], gv[i], z);
+      h.cenx = hv[0]; h.ceny = hv[1]; h.cenz = hv[2];
+      h.mat = hv[3]; h.tex = hv[4];
+      h.c0x = hv[5]; h.c0y = hv[6]; h.c0z = hv[7];
+      h.c1x = hv[8]; h.c1y = hv[9]; h.c1z = hv[10];
+      h.fuzz = hv[11];
     }
-    const rt::Shade s = rt::shade(q, t_b, seed, h);
+    rt::Shade s;
+    if constexpr (CUT_SHADE) {  // the ray passes through: point o, albedo and scatter d
+      // (the winner's attributes consumed, so their loads stay)
+      s.px = rt::keep(ox, rt::keep(h.mat, rt::keep(h.c0x, rt::keep(h.c0y, h.c0z, z), z), z),
+                      z);
+      s.py = rt::keep(oy, rt::keep(h.fuzz, rt::keep(h.cenx, rt::keep(h.ceny, h.cenz, z), z), z),
+                      z);
+      s.pz = rt::keep(oz, rt::keep(h.tex, rt::keep(h.c1x, rt::keep(h.c1y, h.c1z, z), z), z),
+                      z);
+      s.ax = dx; s.ay = dy; s.az = dz;
+      s.sdx = dx; s.sdy = dy; s.sdz = dz;
+      s.does_scatter = hit;
+      s.seed_h = seed;
+    } else {
+      s = rt::shade(q, t_b, seed, h);
+    }
 
     // ---- termination & accumulation (shader.rgen:70-89) -------------------
     const bool deep = depth + 1 >= P.max_depth;
@@ -345,7 +515,7 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
     const bool pix_done = term && !more;
     if (pix_done) {
       const int pix = mrow * P.n_lanes + lane0;
-      if (mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
+      if ((!FREEZE || !frozen) && mrow >= 0 && mrow < P.m_slots && pix < P.p_total) {
         float* a = P.acc + 3 * (size_t)pix;
         a[0] = a[0] + cur_x;
         a[1] = a[1] + cur_y;
@@ -361,34 +531,86 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
     const int pix2 = m2 * P.n_lanes + lane0;
     const bool adv = pix_done && m2 < P.m_slots && pix2 < P.p_total;
     const bool regen = more || adv;
-    if (cont) {
-      float bx = s.sdx, by = s.sdy, bz = s.sdz;
-      rt::norm3(bx, by, bz);
-      ox = s.px; oy = s.py; oz = s.pz;
-      dx = bx; dy = by; dz = bz;
-      tx = ntx; ty = nty; tz = ntz;
-      seed = seed_a;
-      depth = depth + 1;
-    } else if (regen) {
-      uint32_t seed_c = seed_a;
-      if (adv) {
-        const int px2 = pix2 % P.width, py2 = pix2 / P.width;
-        fx = (float)(offx + px2);
-        fy = (float)(y0 + py2);
-        seed_c = rt::pixel_seed(px2, seed_y0 + py2, number);
+    if constexpr (!FREEZE) {
+      if (cont) {
+        float bx = s.sdx, by = s.sdy, bz = s.sdz;
+        rt::norm3(bx, by, bz);
+        ox = s.px; oy = s.py; oz = s.pz;
+        dx = bx; dy = by; dz = bz;
+        tx = ntx; ty = nty; tz = ntz;
+        seed = seed_a;
+        depth = depth + 1;
+      } else if (regen) {
+        uint32_t seed_c = seed_a;
+        if (adv) {
+          const int px2 = pix2 % P.width, py2 = pix2 / P.width;
+          fx = (float)(offx + px2);
+          fy = (float)(y0 + py2);
+          if constexpr (CUT_TEA) seed_c = seed;
+          else seed_c = rt::pixel_seed(px2, seed_y0 + py2, number);
+        }
+        if constexpr (!CUT_CAMERA) {
+          const rt::Ray r = rt::camera_ray(seed_c, fx, fy, vpr);
+          ox = r.ox; oy = r.oy; oz = r.oz;
+          dx = r.dx; dy = r.dy; dz = r.dz;
+        }
+        tx = 1.0f; ty = 1.0f; tz = 1.0f;
+        seed = seed_c;
+        depth = 0;
+      } else {
+        seed = seed_a;
       }
-      const rt::Ray r = rt::camera_ray(seed_c, fx, fy, vpr);
-      ox = r.ox; oy = r.oy; oz = r.oz;
-      dx = r.dx; dy = r.dy; dz = r.dz;
-      tx = 1.0f; ty = 1.0f; tz = 1.0f;
-      seed = seed_c;
-      depth = 0;
     } else {
-      seed = seed_a;
+      // FREEZE: every lane hashes its next pixel's seed and casts its camera
+      // ray; each keeps what its branch takes
+      const int px2 = pix2 % P.width, py2 = pix2 / P.width;
+      const float fxn = adv ? (float)(offx + px2) : fx;
+      const float fyn = adv ? (float)(y0 + py2) : fy;
+      uint32_t fresh = seed;
+      if constexpr (!CUT_TEA) fresh = rt::pixel_seed(px2, seed_y0 + py2, number);
+      uint32_t seed_c = rt::keep(adv ? fresh : seed_a, fresh, z);
+      rt::Ray r{ox, oy, oz, dx, dy, dz};
+      if constexpr (!CUT_CAMERA) r = rt::camera_ray(seed_c, fxn, fyn, vpr);
+      fx = fxn;
+      fy = fyn;
+      if (cont) {
+        float bx = s.sdx, by = s.sdy, bz = s.sdz;
+        rt::norm3(bx, by, bz);
+        ox = s.px; oy = s.py; oz = s.pz;
+        dx = bx; dy = by; dz = bz;
+        tx = ntx; ty = nty; tz = ntz;
+        seed = seed_a;
+        depth = depth + 1;
+      } else if (regen) {
+        ox = r.ox; oy = r.oy; oz = r.oz;
+        dx = r.dx; dy = r.dy; dz = r.dz;
+        tx = 1.0f; ty = 1.0f; tz = 1.0f;
+        seed = seed_c;
+        depth = 0;
+      } else {
+        seed = seed_a;
+      }
+      ox = rt::keep(ox, r.ox, z); oy = rt::keep(oy, r.oy, z); oz = rt::keep(oz, r.oz, z);
+      dx = rt::keep(dx, r.dx, z); dy = rt::keep(dy, r.dy, z); dz = rt::keep(dz, r.dz, z);
+      seed = rt::keep(seed, seed_c, z);
     }
     mrow = m2;
     sidx = adv ? 1 : sidx + (more ? 1 : 0);
     alive = cont || regen;
+    if constexpr (FREEZE) {
+      if (frozen) {
+        ox = rt::keep(f_ox, ox, z); oy = rt::keep(f_oy, oy, z); oz = rt::keep(f_oz, oz, z);
+        dx = rt::keep(f_dx, dx, z); dy = rt::keep(f_dy, dy, z); dz = rt::keep(f_dz, dz, z);
+        fx = rt::keep(f_fx, fx, z); fy = rt::keep(f_fy, fy, z);
+        tx = rt::keep(f_tx, tx, z); ty = rt::keep(f_ty, ty, z); tz = rt::keep(f_tz, tz, z);
+        cur_x = rt::keep(f_cx, cur_x, z); cur_y = rt::keep(f_cy, cur_y, z);
+        cur_z = rt::keep(f_cz, cur_z, z);
+        seed = rt::keep(f_seed, seed, z);
+        mrow = rt::keep(f_mrow, mrow, z); sidx = rt::keep(f_sidx, sidx, z);
+        depth = rt::keep(f_depth, depth, z);
+        alive = rt::keep(true, alive, z);
+      }
+    }
   }
 
   P.fout[0 * n + lane] = ox; P.fout[1 * n + lane] = oy; P.fout[2 * n + lane] = oz;
@@ -425,14 +647,15 @@ __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParam
 }  // namespace
 
 // Launches one step over the n lanes of the state on `stream`; returns
-// cudaGetLastError() of the launch.
+// cudaGetLastError() of the launch.  `zero` (always 0) is read by the probe
+// variants only.
 extern "C" int rt_paged_megakernel_step(
     const int32_t* scal, const float* vpr, const float* gscal, const float* gtab,
     const float* geom, const float* lids, const float* attrs,
     const float* fin, const int32_t* uin, float* acc, float* fout, int32_t* uout,
     int32_t* key, int n_g, int five, int textured, int n_slots, int ab,
     int n, int rf, int m_slots, int n_lanes, int p_total, int width,
-    int max_depth, int k_steps, int skip_tmax,
+    int max_depth, int k_steps, int skip_tmax, int zero,
     int rr_on, int rr_d0, int rr_d1, float rr_pmin, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -440,6 +663,11 @@ extern "C" int rt_paged_megakernel_step(
   PagedParams P{scal, vpr, gscal, gtab, geom, lids, attrs, fin, uin, acc, fout, uout,
                 key, n_g, n_slots, ab, n, rf, m_slots, n_lanes, p_total, width,
                 max_depth, k_steps, skip_tmax != 0, rt::RR{rr_on, rr_d0, rr_d1, rr_pmin}};
+#if RT_ABLATE
+  P.zero = (uint32_t)zero;
+#else
+  (void)zero;
+#endif
   const int grid = (n + BLOCK - 1) / BLOCK;
   const cudaStream_t st = (cudaStream_t)stream;
   if (five && textured)

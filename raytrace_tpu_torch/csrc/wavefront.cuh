@@ -170,6 +170,9 @@ struct Shade {
   uint32_t seed_h;  // seed after the material's draws
 };
 
+// CUT_SIN: the cost probe's `cut_sin` (ops/gridkernel.py): the checker's
+// three sines replaced by the product of their arguments.
+template <bool CUT_SIN = false>
 __device__ __forceinline__ Shade shade(const RayTerms& q, float t, uint32_t seed,
                                        const Hit& h) {
   Shade s;
@@ -192,7 +195,8 @@ __device__ __forceinline__ Shade shade(const RayTerms& q, float t, uint32_t seed
   // Payne-Hanek slow path).
   bool use_c1 = false;
   if (h.tex > 0.5f && t < BIG) {
-    float sines = sinf(6.0f * s.px) * sinf(6.0f * s.py) * sinf(6.0f * s.pz);
+    float sines = CUT_SIN ? (6.0f * s.px) * (6.0f * s.py) * (6.0f * s.pz)
+                          : sinf(6.0f * s.px) * sinf(6.0f * s.py) * sinf(6.0f * s.pz);
     use_c1 = !(sines > 0.0f);
   }
   s.ax = use_c1 ? h.c1x : h.c0x;
@@ -259,6 +263,28 @@ __device__ __forceinline__ float rr_probability(float ntx, float nty, float ntz,
   float p = jmin(1.0f, jmax(rr.pmin, jmax(ntx, jmax(nty, ntz))));
   if (rr.d1 && dnext >= rr.d1) p = p * 0.5f;
   return p;
+}
+
+// ---- the section-cost probes (RT_ABLATE builds of the grid and paged kernels)
+// z is a launch argument that is 0 at run time and unknown to the compiler:
+// keep(x, y, z) is x and consumes y, so y is computed in full and cannot be
+// sunk into a branch; opaque(x, z) is x in a form the compiler cannot merge
+// with another computation on x.  Bit operations only: any value, NaN
+// included, comes back unchanged.
+__device__ __forceinline__ float keep(float x, float y, uint32_t z) {
+  return __uint_as_float(__float_as_uint(x) ^ (__float_as_uint(y) & z));
+}
+__device__ __forceinline__ int keep(int x, int y, uint32_t z) {
+  return (int)((uint32_t)x ^ ((uint32_t)y & z));
+}
+__device__ __forceinline__ uint32_t keep(uint32_t x, uint32_t y, uint32_t z) {
+  return x ^ (y & z);
+}
+__device__ __forceinline__ bool keep(bool x, bool y, uint32_t z) {
+  return ((x ? 1u : 0u) ^ ((y ? 1u : 0u) & z)) != 0u;
+}
+__device__ __forceinline__ float opaque(float x, uint32_t z) {
+  return __uint_as_float(__float_as_uint(x) ^ z);
 }
 
 // first TEA seed of a pixel (shader.rgen:40)

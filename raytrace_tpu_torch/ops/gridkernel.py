@@ -49,6 +49,19 @@ JAX row 8.
 issued iterations of the lane's current (pixel, call) chunk instead of
 colour; green and blue stay colour.
 
+The section-cost probes (``ablate``, the JAX kernel's switches for
+``scripts/grid_ablate.py`` and ``grid_iterbench.py``; ``SWITCHES``): the
+duplications (``DUPLICATIONS``, ``global2`` ... ``camera2``) run one section
+a second time and discard it, so the image is bit-identical and the plain
+version ignores them; the removals (``cut_*``) replace a section with a
+passthrough of live values, with the JAX kernel's meaning (the image is
+invalid); ``freeze`` (the JAX paged kernel's switch) pins the march: a
+cell's advance is discarded and the cell stays, so a marching lane marches
+forever.  On the card each switch set is a library of its own
+(``_build.library(grid=mask)``), in which ``freeze`` makes every live lane run
+every section each iteration.  ``ABLATE`` (empty) is read by
+``runtime/renderer.py`` at call time.
+
 ``grid_megakernel_step`` launches the hand-written CUDA kernel
 (``csrc/gridkernel.cu``) for CUDA state and the plain torch version
 ``grid_megakernel_step_plain`` for CPU state; each counts its launches in its
@@ -93,6 +106,27 @@ U_ROWS = 10
 
 TAG = 4096.0  # bkey values >= TAG are global-table winners (TAG + id)
 MAX_G = 32  # rows of gtab / gttab the kernel stages (models/grid.py MAX_GTAB)
+
+# the probe switches; bit i of a variant's mask is SWITCHES[i]
+# (csrc/gridkernel.cu's constants)
+SWITCHES = ("global2", "fetch2", "isect2", "dda2", "resolve2", "shade2", "camera2",
+            "cut_tea", "cut_globals", "cut_init", "cut_fetch", "cut_quad", "cut_resolve",
+            "cut_shade", "cut_sin", "cut_camera", "freeze")
+DUPLICATIONS = SWITCHES[:7]
+ABLATE: frozenset = frozenset()  # the renderer's switches (scripts/grid_ablate.py)
+
+
+def switch_mask(ablate, switches=SWITCHES, kernel="grid") -> int:
+    """The library mask of the switch set ``ablate``; a token the port does
+    not have raises ``NotImplementedError``."""
+    mask = 0
+    for a in ablate:
+        if a not in switches:
+            raise NotImplementedError(
+                f"ablate token {a!r}: the {kernel} kernel's probes are {switches} (the "
+                "Mosaic switches are not ported: ROADMAP, 'Not ported, by design')")
+        mask |= 1 << switches.index(a)
+    return mask
 
 
 def layout(grid):
@@ -158,7 +192,7 @@ def _slab_inv(o_c, d_c, inv, lo, hi, big):
 def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
                          n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
                          j_steps=J_STEPS, skip_tmax=False, rr=None,
-                         passign=None, iterstats=False):
+                         passign=None, iterstats=False, ablate=()):
     """``k_steps`` grid-traced wavefront iterations over the state's lanes.
 
     ``grid``: CellTables of torch tensors on the state's device.  fstate
@@ -166,8 +200,10 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     f32, the band's pixel sums in home order, updated in place.
     ``passign``: None (M strided pixels per lane) or the balanced table,
     int32 [m_slots, n_pad] indexed by slot and ``U_LANE0``; ``iterstats``:
-    the cost probe.  Returns new (fstate, ustate).  CUDA tensors launch the
-    kernel; CPU tensors run ``grid_megakernel_step_plain``."""
+    the cost probe; ``ablate``: probe switches (``SWITCHES``).  Returns new
+    (fstate, ustate).  CUDA tensors launch the kernel (the switch set's
+    library); CPU tensors run ``grid_megakernel_step_plain``."""
+    mask = switch_mask(ablate)
     _check_state(fstate, ustate, F_ROWS, U_ROWS)
     if acc.shape != (p_total, 3) or acc.dtype != torch.float32:
         raise ValueError(f"acc {tuple(acc.shape)} {acc.dtype}, want ({p_total}, 3) float32")
@@ -176,7 +212,8 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
     _check_passign(passign, m_slots, n_lanes, fstate.device)
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
               max_depth=max_depth, k_steps=k_steps, j_steps=j_steps,
-              skip_tmax=skip_tmax, rr=rr, passign=passign, iterstats=iterstats)
+              skip_tmax=skip_tmax, rr=rr, passign=passign, iterstats=iterstats,
+              ablate=ablate)
     if fstate.device.type == "cpu":
         return grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, **kw)
     if fstate.device.type != "cuda":
@@ -217,20 +254,21 @@ def grid_megakernel_step(scal, vpr, grid, fstate, ustate, acc, *, m_slots,
             raise ValueError(f"{name} must be 16-byte aligned (read as float4)")
     fout = torch.empty_like(fstate)
     uout = torch.empty_like(ustate)
-    err = _build.library().rt_grid_megakernel_step(
+    err = _build.library(grid=mask).rt_grid_megakernel_step(
         *ptrs, fout.data_ptr(), uout.data_ptr(),
         g.gtab.shape[0], g.gttab.shape[0], int(five), n_slots, stride,
         fstate.shape[1], m_slots, n_lanes, p_total, width, max_depth, k_steps,
         j_steps, int(bool(skip_tmax)), 0 if passign is None else passign.shape[1],
-        int(bool(iterstats)), *_rr_args(rr),
+        int(bool(iterstats)), 0, g.cells.shape[0], n_ids, *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"grid kernel launch failed: {_build.error_string(err)}")
-    launches.count(grid_megakernel_step)
+    launches.count(grid_megakernel_step, "+".join(ablate))
     return fout, uout
 
 
 grid_megakernel_step.launches = 0
+grid_megakernel_step.variant_launches = {}  # per probe switch set
 
 
 def grid_megakernel_step_plain(scal, vpr, grid, fstate, ustate, acc, **step):
@@ -254,7 +292,13 @@ def grid_step_work(scal, vpr, grid, fstate, ustate, acc, **step) -> dict:
 
 def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_total,
                 width, max_depth, k_steps=K_STEPS, j_steps=J_STEPS, skip_tmax=False,
-                rr=None, passign=None, iterstats=False, work=None):
+                rr=None, passign=None, iterstats=False, ablate=(), work=None):
+    switch_mask(ablate)
+
+    def cut(name):
+        return "cut_" + name in ablate
+
+    freeze = "freeze" in ablate
     dev = fstate.device
     f = fstate.clone()
     u = ustate.clone()
@@ -308,7 +352,7 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
                        quadratics=need.sum() * (gtab[:, 3] < 1e30).sum())
         t_b = torch.where(need, big, t_b)
         bkey = torch.where(need, TAG, bkey)
-        for k in range(gtab.shape[0]):
+        for k in range(0 if cut("globals") else gtab.shape[0]):
             tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
                             gtab[k, 0], gtab[k, 1], gtab[k, 2], gtab[k, 3],
                             skip_tmax=skip_tmax, big=big)
@@ -320,27 +364,28 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
         inv_x = 1.0 / dx
         inv_y = 1.0 / dy
         inv_z = 1.0 / dz
-        t0x, t1x = _slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], big)
-        t0y, t1y = _slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], big)
-        t0z, t1z = _slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], big)
-        t_start = torch.maximum(torch.maximum(t0x, t0y),
-                                torch.clamp(t0z, min=TMIN))
-        t_end_n = torch.minimum(torch.minimum(t1x, t1y), t1z)
-        march0 = need & (t_start <= t_end_n) & (t_start < t_b)
-        px0 = ox + t_start * dx
-        pz0 = oz + t_start * dz
-        icx_n = torch.minimum(torch.maximum(torch.floor(px0 * inv_s + 0.5), cminx), cmaxx)
-        icz_n = torch.minimum(torch.maximum(torch.floor(pz0 * inv_s + 0.5), cminz), cmaxz)
-        bx0 = (icx_n + torch.where(dx >= 0, 0.5, -0.5)) * s_
-        bz0 = (icz_n + torch.where(dz >= 0, 0.5, -0.5)) * s_
-        t_nx_n = torch.where(dx == 0.0, big, (bx0 - ox) * inv_x)
-        t_nz_n = torch.where(dz == 0.0, big, (bz0 - oz) * inv_z)
-        t_end = torch.where(need, t_end_n, t_end)
-        t_nx = torch.where(march0, t_nx_n, t_nx)
-        t_nz = torch.where(march0, t_nz_n, t_nz)
-        icx = torch.where(march0, icx_n.to(torch.int64), icx)
-        icz = torch.where(march0, icz_n.to(torch.int64), icz)
-        marching = marching | march0
+        if not cut("init"):  # (cut: no lane starts a march)
+            t0x, t1x = _slab_inv(ox, dx, inv_x, gs[G_XLO], gs[G_XHI], big)
+            t0y, t1y = _slab_inv(oy, dy, inv_y, gs[G_YLO], gs[G_YHI], big)
+            t0z, t1z = _slab_inv(oz, dz, inv_z, gs[G_ZLO], gs[G_ZHI], big)
+            t_start = torch.maximum(torch.maximum(t0x, t0y),
+                                    torch.clamp(t0z, min=TMIN))
+            t_end_n = torch.minimum(torch.minimum(t1x, t1y), t1z)
+            march0 = need & (t_start <= t_end_n) & (t_start < t_b)
+            px0 = ox + t_start * dx
+            pz0 = oz + t_start * dz
+            icx_n = torch.minimum(torch.maximum(torch.floor(px0 * inv_s + 0.5), cminx), cmaxx)
+            icz_n = torch.minimum(torch.maximum(torch.floor(pz0 * inv_s + 0.5), cminz), cmaxz)
+            bx0 = (icx_n + torch.where(dx >= 0, 0.5, -0.5)) * s_
+            bz0 = (icz_n + torch.where(dz >= 0, 0.5, -0.5)) * s_
+            t_nx_n = torch.where(dx == 0.0, big, (bx0 - ox) * inv_x)
+            t_nz_n = torch.where(dz == 0.0, big, (bz0 - oz) * inv_z)
+            t_end = torch.where(need, t_end_n, t_end)
+            t_nx = torch.where(march0, t_nx_n, t_nx)
+            t_nz = torch.where(march0, t_nz_n, t_nz)
+            icx = torch.where(march0, icx_n.to(torch.int64), icx)
+            icz = torch.where(march0, icz_n.to(torch.int64), icz)
+            marching = marching | march0
 
         # ---- DDA march: up to j_steps cells ---------------------------------
         step_x = torch.where(dx >= 0, 1, -1)
@@ -354,7 +399,8 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
                    + (icz.to(torch.float32) - cminz)).to(torch.int64)
             # non-marching lanes may hold a stale cell: clamp the fetch index
             # (their values are masked by ``marching`` below)
-            rec = grid.cells[cid.clamp(0, n_cells - 1)].T  # [stride, n]
+            rec = (ox.expand(stride, -1) if cut("fetch")  # (cut: every value is ox)
+                   else grid.cells[cid.clamp(0, n_cells - 1)].T)  # [stride, n]
             if work is not None:  # the kernel loads a cell's n_slots float4 slots
                 count_work(work, table_values=marching.sum() * 4 * n_slots)
             for s in range(n_slots):
@@ -366,13 +412,16 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
                     s_cy = cy_u
                 if work is not None:
                     count_work(work, quadratics=(marching & (s_kc < 1e30)).sum())
-                tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                                s_cx, s_cy, s_cz, s_kc, skip_tmax=skip_tmax, big=big)
+                tc = (s_cx + oy if cut("quad") else
+                      _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
+                                 s_cx, s_cy, s_cz, s_kc, skip_tmax=skip_tmax, big=big))
                 upd = marching & (tc < t_b)
                 if work is not None and five:  # the winning slot's id
                     count_work(work, table_values=upd.sum())
                 t_b = torch.where(upd, tc, t_b)
                 bkey = torch.where(upd, sid, bkey)
+            if freeze:  # the cell stays
+                continue
             t_exit = torch.minimum(t_nx, t_nz)
             cont = marching & (t_exit < t_b) & (t_exit < t_end)
             cross_x = t_nx <= t_nz
@@ -393,7 +442,11 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
         # ---- winner resolution: bkey (sphere id) -> attrs -------------------
         is_direct = bkey >= TAG
         bidx = torch.where(is_direct, bkey - TAG, bkey).to(torch.int64)
-        at = grid.attrs[bidx].T  # mat, c0.rgb, attr, center.xyz
+        # an id outside the table (made of ox under cut_fetch) reads entry
+        # id & 127, as the JAX kernel's block-select gather does
+        bidx = torch.where((bidx >= 0) & (bidx < grid.attrs.shape[0]), bidx, bidx & 127)
+        # mat, c0.rgb, attr, center.xyz (cut: every one is bkey)
+        at = bkey.expand(8, -1) if cut("resolve") else grid.attrs[bidx].T
         if grid.tattrs is not None:
             tex, c1x, c1y, c1z = grid.tattrs[bidx].T
         else:
@@ -408,10 +461,14 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
                 c1y = torch.where(sel, gttab[k, 11], c1y)
                 c1z = torch.where(sel, gttab[k, 12], c1z)
 
-        (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
-         seed_h) = shade_rows(ox, oy, oz, dx, dy, dz, t_b, seed,
-                              at[5], at[6], at[7], at[0], tex, at[1], at[2],
-                              at[3], c1x, c1y, c1z, at[4])
+        if cut("shade"):  # the ray passes through: point o, albedo and scatter d
+            (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter, seed_h) = (
+                ox, oy, oz, dx, dy, dz, dx, dy, dz, t_b < big, seed)
+        else:
+            (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
+             seed_h) = shade_rows(ox, oy, oz, dx, dy, dz, t_b, seed,
+                                  at[5], at[6], at[7], at[0], tex, at[1], at[2],
+                                  at[3], c1x, c1y, c1z, at[4], cut_sin=cut("sin"))
 
         # ---- termination & accumulation (shader.rgen:70-89) ----------------
         scatters = hit & does_scatter
@@ -464,22 +521,27 @@ def _step_plain(scal, vpr, grid, fstate, ustate, acc, *, m_slots, n_lanes, p_tot
         py2 = pix2 // width
         fx2 = (offx + px2).to(torch.float32)
         fy2 = (y0 + py2).to(torch.float32)
-        fresh_np = rngops.tea_hash(rngops.tea_hash(px2, seed_y0 + py2),
-                                   torch.full_like(px2, number))
+        # the fresh seeds: the next pixel's, the same pixel's next call's
+        # (cut: the lane's seed)
+        fresh_np = seed if cut("tea") else rngops.tea_hash(
+            rngops.tea_hash(px2, seed_y0 + py2), torch.full_like(px2, number))
         seed_c = seed_a
         if n_calls > 1:  # the same pixel's next call (fx, fy hold its pixel)
             px_cur = (fx - float(offx)).to(torch.int64)
             py_cur = (fy - float(y0)).to(torch.int64)
-            fresh_nc = rngops.tea_hash(rngops.tea_hash(px_cur, seed_y0 + py_cur),
-                                       (number + cidx + 1) & rngops.MASK)
+            fresh_nc = seed if cut("tea") else rngops.tea_hash(
+                rngops.tea_hash(px_cur, seed_y0 + py_cur), (number + cidx + 1) & rngops.MASK)
             seed_c = torch.where(more_calls, fresh_nc, seed_a)
         seed_c = torch.where(adv, fresh_np, seed_c)
         renew = more_calls | adv
         regen = more | renew
         fxn = torch.where(adv, fx2, fx)
         fyn = torch.where(adv, fy2, fy)
-        seed_r, (cox, coy, coz), (cdx, cdy, cdz) = camera_rays_rows(
-            seed_c, fxn, fyn, vpr)
+        if cut("camera"):  # the lane keeps its ray
+            seed_r, (cox, coy, coz), (cdx, cdy, cdz) = seed_c, (ox, oy, oz), (dx, dy, dz)
+        else:
+            seed_r, (cox, coy, coz), (cdx, cdy, cdz) = camera_rays_rows(
+                seed_c, fxn, fyn, vpr)
         bx, by, bz = norm3(sdx, sdy, sdz)
 
         ox = torch.where(cont_b, px_, torch.where(regen, cox, ox))

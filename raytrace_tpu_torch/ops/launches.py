@@ -15,7 +15,11 @@ import threading
 _LOCK = threading.Lock()
 
 
-def count(fn) -> None:
-    """Add one to ``fn.launches``."""
+def count(fn, variant=None) -> None:
+    """Add one to ``fn.launches``, and with ``variant`` (the name of a probe
+    switch set, ops/gridkernel.py ``SWITCHES``) to
+    ``fn.variant_launches[variant]``."""
     with _LOCK:
         fn.launches += 1
+        if variant:
+            fn.variant_launches[variant] = fn.variant_launches.get(variant, 0) + 1

@@ -25,6 +25,15 @@ _render_band_paged``) sorts the lanes by page and drops the dead ones between
 launches; pixel identity rides in the ``U_LANE0`` row, and each step returns
 the next sort key of every lane (``trace._rebucket_key`` of its output).
 
+The section-cost probes (``ablate``, the JAX kernel's switches for
+``scripts/paged_iterbench.py``; ``SWITCHES``): the removals (``cut_*``)
+replace a section with a passthrough of live values, with the JAX kernel's
+meaning (the image is invalid); ``freeze`` pins the march: the advance is
+discarded and the cell stays.  On the card each switch set is a library of
+its own (``_build.library(paged=mask)``), in which ``freeze`` makes every
+live lane run every section each iteration.  ``ABLATE`` (empty) is read by
+``runtime/renderer.py`` at call time.
+
 ``paged_megakernel_step`` launches the hand-written CUDA kernel
 (``csrc/pagedkernel.cu``) for CUDA state and the plain torch version
 ``paged_megakernel_step_plain`` for CPU state; each counts its launches in its
@@ -51,7 +60,7 @@ from ..models.paged_grid import (P_CY, P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ,
                                  P_YLO, P_ZHI, P_ZLO)
 from . import launches
 from . import rng as rngops
-from .gridkernel import _quadratic, _slab_inv
+from .gridkernel import _quadratic, _slab_inv, switch_mask
 from .intersect import BIG
 from .megakernel import (S_NUMBER, S_OFFX, S_SEEDY0, S_SPP, S_Y0, SKY, TMIN,
                          _check_state, _cuda_args, _rr_args, camera_rays_rows,
@@ -64,6 +73,11 @@ K_STEPS = 10  # iterations per launch at 32k lanes; scaled_k scales it
 # False to launch exactly K_STEPS
 K_AUTO = True
 _TAG = float(np.float32(8388608.0))  # 2^23: bkey >= _TAG is a global winner
+# the probe switches; bit i of a variant's mask is SWITCHES[i]
+# (csrc/pagedkernel.cu's constants)
+SWITCHES = ("cut_globals", "cut_init", "cut_fetch", "cut_quad", "cut_resolve", "cut_gsel",
+            "cut_shade", "cut_tea", "cut_camera", "freeze")
+ABLATE: frozenset = frozenset()  # the renderer's switches
 
 R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
 R_TB, R_TE, R_TNX, R_TNZ, R_BKEY = 11, 12, 13, 14, 15
@@ -116,22 +130,26 @@ def layout(paged):
 
 def paged_megakernel_step(scal, vpr, paged, fstate, ustate, acc, *, m_slots,
                           n_lanes, p_total, width, max_depth, k_steps=K_STEPS,
-                          skip_tmax=False, rr=None):
+                          skip_tmax=False, rr=None, ablate=()):
     """``k_steps`` paged-grid wavefront iterations over the state's lanes.
 
     ``paged``: PagedGridTables of torch tensors on the state's device (no
     ``govf``).  fstate [pf_rows(na), n] f32 (na carried attr rows), ustate
     [8, n] int32, any n; ``acc`` [p_total, 3] f32, the band's pixel sums in
-    home order, updated in place.  Returns new (fstate, ustate, key): key
-    [n] int32 is ``trace._rebucket_key`` of the new state.  CUDA tensors
-    launch the kernel; CPU tensors run ``paged_megakernel_step_plain``."""
+    home order, updated in place.  ``ablate``: probe switches
+    (``SWITCHES``).  Returns new (fstate, ustate, key): key [n] int32 is
+    ``trace._rebucket_key`` of the new state.  CUDA tensors launch the
+    kernel (the switch set's library); CPU tensors run
+    ``paged_megakernel_step_plain``."""
+    mask = switch_mask(ablate, SWITCHES, "paged")
     five, textured, n_slots, w, na, ab = layout(paged)
     rf = pf_rows(na)
     _check_state(fstate, ustate, rf, U_ROWS)
     if acc.shape != (p_total, 3) or acc.dtype != torch.float32:
         raise ValueError(f"acc {tuple(acc.shape)} {acc.dtype}, want ({p_total}, 3) float32")
     kw = dict(m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
-              max_depth=max_depth, k_steps=k_steps, skip_tmax=skip_tmax, rr=rr)
+              max_depth=max_depth, k_steps=k_steps, skip_tmax=skip_tmax, rr=rr,
+              ablate=ablate)
     if fstate.device.type == "cpu":
         return paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, **kw)
     if fstate.device.type != "cuda":
@@ -159,25 +177,26 @@ def paged_megakernel_step(scal, vpr, paged, fstate, ustate, acc, *, m_slots,
     uout = torch.empty_like(ustate)
     n = fstate.shape[1]
     key = torch.empty(n, dtype=torch.int32, device=fstate.device)
-    err = _build.library().rt_paged_megakernel_step(
+    err = _build.library(paged=mask).rt_paged_megakernel_step(
         *ptrs, fout.data_ptr(), uout.data_ptr(), key.data_ptr(),
         g.gtab.shape[0], int(five), int(textured), n_slots, ab,
         n, rf, m_slots, n_lanes, p_total, width, max_depth, k_steps,
-        int(bool(skip_tmax)), *_rr_args(rr),
+        int(bool(skip_tmax)), 0, *_rr_args(rr),
         fstate.device.index, torch.cuda.current_stream(fstate.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged kernel launch failed: {_build.error_string(err)}")
-    launches.count(paged_megakernel_step)
+    launches.count(paged_megakernel_step, "+".join(ablate))
     return fout, uout, key
 
 
 paged_megakernel_step.launches = 0
+paged_megakernel_step.variant_launches = {}  # per probe switch set
 
 
 def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
                                 m_slots, n_lanes, p_total, width, max_depth,
                                 k_steps=K_STEPS, skip_tmax=False, rr=None,
-                                work=None):
+                                ablate=(), work=None):
     """The plain torch version of ``paged_megakernel_step``: the JAX
     ``_iterate`` (carry=True, no govf) vectorized over lanes, with the same
     operand order as the CUDA kernel; the page fetches are direct gathers at
@@ -185,6 +204,11 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
     ``work``: optional dict that receives the counts of
     ``megakernel.count_work``."""
     from .trace import _rebucket_key
+
+    switch_mask(ablate, SWITCHES, "paged")
+
+    def cut(name):
+        return "cut_" + name in ablate
 
     launches.count(paged_megakernel_step_plain)
     five, textured, n_slots, w, na, ab = layout(paged)
@@ -237,7 +261,7 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
                        quadratics=need.sum() * (gtab[:, 3] < 1e30).sum())
         t_b = torch.where(need, big, t_b)
         bkey = torch.where(need, _TAG, bkey)
-        for k in range(gtab.shape[0]):
+        for k in range(0 if cut("globals") else gtab.shape[0]):
             tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
                             gtab[k, 0], gtab[k, 1], gtab[k, 2], gtab[k, 3],
                             skip_tmax=skip_tmax, big=big)
@@ -248,27 +272,30 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         inv_x = 1.0 / dx
         inv_y = 1.0 / dy
         inv_z = 1.0 / dz
-        t0x, t1x = _slab_inv(ox, dx, inv_x, gs[P_XLO], gs[P_XHI], big)
-        t0y, t1y = _slab_inv(oy, dy, inv_y, gs[P_YLO], gs[P_YHI], big)
-        t0z, t1z = _slab_inv(oz, dz, inv_z, gs[P_ZLO], gs[P_ZHI], big)
-        t_start = torch.maximum(torch.maximum(t0x, t0y), torch.maximum(t0z, tmin))
-        t_end_n = torch.minimum(torch.minimum(t1x, t1y), t1z)
-        march0 = need & (t_start <= t_end_n) & (t_start < t_b)
-        px0 = ox + t_start * dx
-        pz0 = oz + t_start * dz
-        icx_n = torch.minimum(torch.maximum(torch.floor((px0 - fminx) * inv_s), fzero), fmaxx)
-        icz_n = torch.minimum(torch.maximum(torch.floor((pz0 - fminz) * inv_s), fzero), fmaxz)
-        bx = fminx + (icx_n + torch.where(dx >= 0, 1.0, 0.0)) * cs
-        bz = fminz + (icz_n + torch.where(dz >= 0, 1.0, 0.0)) * cs
-        t_nx_n = torch.where(dx == 0.0, big, (bx - ox) * inv_x)
-        t_nz_n = torch.where(dz == 0.0, big, (bz - oz) * inv_z)
-        t_end = torch.where(need, t_end_n, t_end)
-        t_nx = torch.where(march0, t_nx_n, t_nx)
-        t_nz = torch.where(march0, t_nz_n, t_nz)
-        cell_n = (torch.where(march0, icx_n, 0.0).to(torch.int64) << 12) \
-            | torch.where(march0, icz_n, 0.0).to(torch.int64)
-        cell = torch.where(march0, cell_n, cell)
-        marching = marching | march0
+        if not cut("init"):  # (cut: no lane starts a march)
+            t0x, t1x = _slab_inv(ox, dx, inv_x, gs[P_XLO], gs[P_XHI], big)
+            t0y, t1y = _slab_inv(oy, dy, inv_y, gs[P_YLO], gs[P_YHI], big)
+            t0z, t1z = _slab_inv(oz, dz, inv_z, gs[P_ZLO], gs[P_ZHI], big)
+            t_start = torch.maximum(torch.maximum(t0x, t0y), torch.maximum(t0z, tmin))
+            t_end_n = torch.minimum(torch.minimum(t1x, t1y), t1z)
+            march0 = need & (t_start <= t_end_n) & (t_start < t_b)
+            px0 = ox + t_start * dx
+            pz0 = oz + t_start * dz
+            icx_n = torch.minimum(torch.maximum(torch.floor((px0 - fminx) * inv_s), fzero),
+                                  fmaxx)
+            icz_n = torch.minimum(torch.maximum(torch.floor((pz0 - fminz) * inv_s), fzero),
+                                  fmaxz)
+            bx = fminx + (icx_n + torch.where(dx >= 0, 1.0, 0.0)) * cs
+            bz = fminz + (icz_n + torch.where(dz >= 0, 1.0, 0.0)) * cs
+            t_nx_n = torch.where(dx == 0.0, big, (bx - ox) * inv_x)
+            t_nz_n = torch.where(dz == 0.0, big, (bz - oz) * inv_z)
+            t_end = torch.where(need, t_end_n, t_end)
+            t_nx = torch.where(march0, t_nx_n, t_nx)
+            t_nz = torch.where(march0, t_nz_n, t_nz)
+            cell_n = (torch.where(march0, icx_n, 0.0).to(torch.int64) << 12) \
+                | torch.where(march0, icz_n, 0.0).to(torch.int64)
+            cell = torch.where(march0, cell_n, cell)
+            marching = marching | march0
 
         # ---- fine-DDA march: one cell per iteration -------------------------
         step_x = torch.where(dx >= 0, 1, -1)
@@ -283,7 +310,8 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         page = sxm * nsczm + szm
         # every lane's cell is a clipped lattice cell, so page/fc are in
         # range; lanes not marching read values nothing uses
-        vals = paged.geom[page[None, :], geom_rows, fc[None, :]]  # [w*slots, n]
+        vals = (ox.expand(w * n_slots, -1) if cut("fetch")  # (cut: every value is ox)
+                else paged.geom[page[None, :], geom_rows, fc[None, :]])  # [w*slots, n]
         pkey = (sxm * 32 + szm).to(torch.float32) * 512.0
         upd_any = torch.zeros_like(marching)
         wslot = torch.zeros_like(cell)
@@ -294,9 +322,10 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
             if work is not None:
                 count_work(work, quadratics=(marching & (vals[b0 + w - 1] < 1e30)).sum())
             s_cy = vals[b0 + 1] if five else cy_u
-            tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                            vals[b0], s_cy, vals[b0 + w - 2], vals[b0 + w - 1],
-                            skip_tmax=skip_tmax, big=big)
+            tc = (vals[b0] + oy if cut("quad") else
+                  _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
+                             vals[b0], s_cy, vals[b0 + w - 2], vals[b0 + w - 1],
+                             skip_tmax=skip_tmax, big=big))
             upd = marching & (tc < t_b)
             t_b = torch.where(upd, tc, t_b)
             wslot = torch.where(upd, s, wslot)
@@ -307,24 +336,29 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         # winner improved in this cell: its lid, then its carried attrs
         if work is not None:
             count_work(work, table_values=upd_any.sum() * (1 + na))
-        lid_w = paged.lids[page, wslot, fc]
+        lid_w = ox if cut("fetch") else paged.lids[page, wslot, fc]
         bkey = torch.where(upd_any, pkey + lid_w, bkey)
         lid = torch.where(upd_any, bkey, 0.0).to(torch.int64) & 511
-        arow = (lid >> 7)[None, :] + ab * torch.arange(na, device=dev)[:, None]
-        vnew = paged.attrs[page[None, :], arow, (lid & 127)[None, :]]  # [na, n]
+        # a block past the page's (a lid made of ox under cut_fetch) reads
+        # block 0, as the JAX kernel's block select does
+        blk = torch.where((lid >> 7) < ab, lid >> 7, 0)
+        arow = blk[None, :] + ab * torch.arange(na, device=dev)[:, None]
+        vnew = (bkey.expand(na, -1) if cut("resolve")  # (cut: every attr is bkey)
+                else paged.attrs[page[None, :], arow, (lid & 127)[None, :]])  # [na, n]
         att = [torch.where(upd_any, vnew[i], att[i]) for i in range(na)]
 
-        t_exit = torch.minimum(t_nx, t_nz)
-        cont = marching & (t_exit < t_b) & (t_exit < t_end)
-        cross_x = t_nx <= t_nz
-        adv_x = cont & cross_x
-        adv_z = cont & ~cross_x
-        icx = torch.where(adv_x, (icx + step_x).clamp(0, ifmaxx), icx)
-        icz = torch.where(adv_z, (icz + step_z).clamp(0, ifmaxz), icz)
-        t_nx = torch.where(adv_x, t_nx + dt_x, t_nx)
-        t_nz = torch.where(adv_z, t_nz + dt_z, t_nz)
-        cell = (icx << 12) | icz
-        marching = cont
+        if "freeze" not in ablate:  # (freeze: the cell stays)
+            t_exit = torch.minimum(t_nx, t_nz)
+            cont = marching & (t_exit < t_b) & (t_exit < t_end)
+            cross_x = t_nx <= t_nz
+            adv_x = cont & cross_x
+            adv_z = cont & ~cross_x
+            icx = torch.where(adv_x, (icx + step_x).clamp(0, ifmaxx), icx)
+            icz = torch.where(adv_z, (icz + step_z).clamp(0, ifmaxz), icz)
+            t_nx = torch.where(adv_x, t_nx + dt_x, t_nx)
+            t_nz = torch.where(adv_z, t_nz + dt_z, t_nz)
+            cell = (icx << 12) | icz
+            marching = cont
 
         seg_done = alive & ~marching
         hit = t_b < big
@@ -338,7 +372,7 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         bidx_f = torch.where(is_direct, bkey - _TAG, -1.0)
         cols = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11, 12, 13)
         gsel = [gtab[0, c].expand_as(t_b) for c in cols]
-        for k in range(1, gtab.shape[0]):
+        for k in range(1, 1 if cut("gsel") else gtab.shape[0]):  # (cut: row 0)
             sel = bidx_f == gtab[k, 4]
             gsel = [torch.where(sel, gtab[k, c], g_) for c, g_ in zip(cols, gsel)]
         (gcx, gcy, gcz, gmat, gtex, gc0x, gc0y, gc0z,
@@ -358,10 +392,14 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         c0z = torch.where(is_direct, gc0z, att[3])
         fuzz = torch.where(is_direct, gattr, att[4])
 
-        (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
-         seed_h) = shade_rows(ox, oy, oz, dx, dy, dz, t_b, seed,
-                              cenx, ceny, cenz, mat, tex, c0x, c0y, c0z,
-                              c1x, c1y, c1z, fuzz)
+        if cut("shade"):  # the ray passes through: point o, albedo and scatter d
+            (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter, seed_h) = (
+                ox, oy, oz, dx, dy, dz, dx, dy, dz, t_b < big, seed)
+        else:
+            (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
+             seed_h) = shade_rows(ox, oy, oz, dx, dy, dz, t_b, seed,
+                                  cenx, ceny, cenz, mat, tex, c0x, c0y, c0z,
+                                  c1x, c1y, c1z, fuzz)
 
         # ---- termination & accumulation (shader.rgen:70-89) ----------------
         scatters = hit & does_scatter
@@ -408,14 +446,17 @@ def paged_megakernel_step_plain(scal, vpr, paged, fstate, ustate, acc, *,
         py2 = pix2 // width
         fx2 = (offx + px2).to(torch.float32)
         fy2 = (y0 + py2).to(torch.float32)
-        fresh = rngops.tea_hash(rngops.tea_hash(px2, seed_y0 + py2),
-                                torch.full_like(px2, number))
+        fresh = seed if cut("tea") else rngops.tea_hash(  # (cut: the lane's seed)
+            rngops.tea_hash(px2, seed_y0 + py2), torch.full_like(px2, number))
         regen = more | adv
         seed_c = torch.where(adv, fresh, seed_a)
         fxn = torch.where(adv, fx2, fx)
         fyn = torch.where(adv, fy2, fy)
-        seed_r, (cox, coy, coz), (cdx, cdy, cdz) = camera_rays_rows(
-            seed_c, fxn, fyn, vpr)
+        if cut("camera"):  # the lane keeps its ray
+            seed_r, (cox, coy, coz), (cdx, cdy, cdz) = seed_c, (ox, oy, oz), (dx, dy, dz)
+        else:
+            seed_r, (cox, coy, coz), (cdx, cdy, cdz) = camera_rays_rows(
+                seed_c, fxn, fyn, vpr)
         bx_, by_, bz_ = norm3(sdx, sdy, sdz)
 
         ox = torch.where(cont_b, px_, torch.where(regen, cox, ox))

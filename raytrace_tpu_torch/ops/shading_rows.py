@@ -23,10 +23,13 @@ def norm3(x, y, z):
 
 
 def shade_rows(ox, oy, oz, dx, dy, dz, t, seed,
-               cenx, ceny, cenz, mat, tex, c0x, c0y, c0z, c1x, c1y, c1z, fuzz):
+               cenx, ceny, cenz, mat, tex, c0x, c0y, c0z, c1x, c1y, c1z, fuzz,
+               cut_sin=False):
     """Returns (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
     seed_h): hit point, albedo, un-normalized scatter direction, scatter
-    flag, and the seed after the material's RNG draws (shader.rchit)."""
+    flag, and the seed after the material's RNG draws (shader.rchit).
+    ``cut_sin``: the grid kernel's cost probe -- the checker's three sines
+    replaced by the product of their arguments (the image is invalid)."""
     px_ = ox + t * dx
     py_ = oy + t * dy
     pz_ = oz + t * dz
@@ -38,7 +41,10 @@ def shade_rows(ox, oy, oz, dx, dy, dz, t, seed,
     nz = torch.where(front, nz, -nz)
 
     # texture (shader.rchit:53-64): 3-D sine checker, size 6
-    sines = torch.sin(6.0 * px_) * torch.sin(6.0 * py_) * torch.sin(6.0 * pz_)
+    if cut_sin:
+        sines = (6.0 * px_) * (6.0 * py_) * (6.0 * pz_)
+    else:
+        sines = torch.sin(6.0 * px_) * torch.sin(6.0 * py_) * torch.sin(6.0 * pz_)
     use_c1 = (tex > 0.5) & ~(sines > 0.0)
     ax = torch.where(use_c1, c1x, c0x)
     ay = torch.where(use_c1, c1y, c0y)

@@ -258,17 +258,28 @@ def _check_options(backend, ablate, grid_steps, n_calls, spp_last, passign):
         raise ValueError("in-kernel call merging is a grid-backend feature")
     if passign is not None and backend != "grid":
         raise ValueError("balanced pixel assignment is a grid-backend feature")
-    probes = tuple(a for a in ablate if a != "iterstats")
-    if probes:
+    from . import gridkernel, pagedkernel
+
+    ported = {"grid": gridkernel.SWITCHES + ("iterstats",),
+              "paged": pagedkernel.SWITCHES}.get(backend, ())
+    every = set(gridkernel.SWITCHES + pagedkernel.SWITCHES + ("iterstats",))
+    mosaic = tuple(a for a in ablate if a not in every)
+    if mosaic:
         raise NotImplementedError(
-            f"ablate={probes}: the Mosaic cost probes are not carried "
-            "over to the port (ROADMAP, 'What does not carry over')")
-    if ablate and backend != "grid":
+            f"ablate={mosaic}: the Mosaic switches are not carried over to the "
+            "port (ROADMAP, 'Not ported, by design')")
+    if "iterstats" in ablate and backend != "grid":
         raise ValueError("the iterstats probe is a grid-backend feature")
+    if any(a not in ported for a in ablate):
+        raise ValueError(f"ablate={tuple(ablate)}: the {backend} backend's switches are "
+                         f"{ported}")
+    if "freeze" in ablate:
+        raise ValueError("freeze pins the march, so a render under it never ends: it is "
+                         "a probe of one step (scripts/grid_iterbench.py)")
     if grid_steps is not None:
         raise NotImplementedError(
             f"grid_steps={tuple(grid_steps)}: the grid-step probes are not "
-            "carried over to the port (ROADMAP, 'What does not carry over')")
+            "carried over to the port (ROADMAP, 'Not ported, by design')")
     if backend not in SPEC_BACKENDS + KERNEL_BACKENDS:
         raise ValueError(f"unknown backend: {backend!r}")
 
@@ -347,7 +358,11 @@ def render_band_steps(
     one with the accumulator carried; ``passign`` (int32 [m_slots, n_pad],
     numpy or tensor, runtime/balance.py) deals the band's pixels to lanes,
     the image unchanged for any table; ``ablate=("iterstats",)`` renders
-    the cost probe (red = issued iterations per pixel).  ``return_iters``:
+    the cost probe (red = issued iterations per pixel).  ``ablate`` also
+    takes the grid kernel's section-cost switches (``gridkernel.SWITCHES``,
+    grid backend) or the paged kernel's (``pagedkernel.SWITCHES``, paged
+    backend), ``freeze`` excepted (its march never ends); the Mosaic
+    switches raise ``NotImplementedError``.  ``return_iters``:
     return (acc, (tile_iters, lane_slots)), the launches' iterations summed
     over their blocks of ``LANE_PAD`` lanes and over their lane slots."""
     _check_options(backend, ablate, grid_steps, n_calls, spp_last, passign)
@@ -355,13 +370,15 @@ def render_band_steps(
               offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
               max_depth=max_depth, pixels_per_lane=pixels_per_lane, rr=rr)
     iters = [0, 0]
+    probes = tuple(a for a in ablate if a != "iterstats")
     if backend == "paged":
-        acc = yield from _render_band_paged(scene, vp, skip_tmax=skip_tmax, iters=iters, **kw)
+        acc = yield from _render_band_paged(scene, vp, skip_tmax=skip_tmax, iters=iters,
+                                            ablate=probes, **kw)
     elif backend in KERNEL_BACKENDS:
         acc = yield from _render_band_mega(
             scene, vp, skip_tmax=skip_tmax, backend=backend, n_calls=n_calls,
             spp_last=spp_last, passign=passign, iterstats="iterstats" in ablate,
-            iters=iters, **kw)
+            ablate=probes, iters=iters, **kw)
     else:
         acc = yield from _render_band_spec(scene, vp, backend=backend, iters=iters, **kw)
     return (acc, tuple(iters)) if return_iters else acc
@@ -640,7 +657,7 @@ def unpack_accum(fstate, *, band_h, width, m_slots, n_lanes, p_total):
 def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                       number, accum_init, max_depth, pixels_per_lane,
                       skip_tmax, backend, rr=None, n_calls=None, spp_last=None,
-                      passign=None, iterstats=False, iters=None):
+                      passign=None, iterstats=False, ablate=(), iters=None):
     """Kernel loop: pack the [rows, lanes] state, launch the wavefront step
     until no lane is alive (one host sync per launch).  backend="mega"
     brute-forces the sphere table (ops/megakernel.py) and its accumulator
@@ -670,7 +687,7 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
         k = gridkernel.K_STEPS
         common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
                       k_steps=k, j_steps=gridkernel.J_STEPS, passign=passign,
-                      iterstats=iterstats)
+                      iterstats=iterstats, ablate=ablate)
         while True:
             live = live_lanes(ustate[gridkernel.U_ALIVE])
             if live.numel() == 0:
@@ -790,7 +807,7 @@ def gather_lanes(fstate, ustate, perm):
 
 def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
                        spp, number, accum_init, max_depth, pixels_per_lane,
-                       skip_tmax, rr=None, iters=None):
+                       skip_tmax, rr=None, ablate=(), iters=None):
     """Paged-grid driver (JAX ``_render_band_paged``, Morton key, carried
     winner attributes).  Before every launch of ``scaled_k(n)`` iterations
     the live lanes are sorted by page and gathered into the next launch's
@@ -808,7 +825,8 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
         pixels_per_lane=pixels_per_lane)
     acc = home_accum(accum_init, geom["p_total"], fstate.device)
     k = pagedkernel.scaled_k(geom["n_lanes"])
-    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k)
+    common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k,
+                  ablate=ablate)
     key = _rebucket_key(fstate, ustate, g.gscal)
     while True:
         perm = live_order(key)

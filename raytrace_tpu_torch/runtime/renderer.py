@@ -163,8 +163,15 @@ class Renderer:
         ``spp`` each, ``spp_last`` for the final one), bit-identical to the
         same calls issued separately.  ``return_iters``: return (accum,
         tile_iters, lane_slots), the launches' iterations summed over their
-        blocks of ``LANE_PAD`` lanes and over their lane slots."""
+        blocks of ``LANE_PAD`` lanes and over their lane slots.  The grid
+        and paged backends render under their kernel module's ``ABLATE``
+        (the section-cost probes' switches, read at call time, as
+        ``scripts/grid_ablate.py`` sets them)."""
+        from ..ops import gridkernel, pagedkernel
+
         cfg = self.config
+        ablate = tuple(sorted({"grid": gridkernel.ABLATE,
+                               "paged": pagedkernel.ABLATE}.get(self.backend, ())))
         if cfg.balance_spp and self.backend == "grid" and self._passign is None:
             self.enable_balance()
         if accum is not None:
@@ -177,7 +184,7 @@ class Renderer:
                 accum_init=None if accum is None else accum[band_y0 : band_y0 + band_h],
                 n_calls=n_calls, spp_last=spp_last,
                 passign=None if self._passign is None else self._passign.get(band_y0),
-                return_iters=return_iters)
+                ablate=ablate, return_iters=return_iters)
             if return_iters:
                 out, (ti, ls) = out
                 tile_iters += ti

@@ -24,7 +24,10 @@ one whose valid rows are not a prefix; for the gather probe and its loop
 baseline (``scripts/bench_gather.py``'s two kernels) every block's slice,
 at one block per SM and at three, on indices that are negative or wrap
 int32 too, and on both of the probe's axis-1 paths, alone and in one
-launch.
+launch; for the section-cost probes (one library per switch set), every
+grid duplication == the production kernel and ``freeze`` with each removal
+== the plain version, on every grid table layout and all four paged
+template instances.
 """
 
 import pytest
@@ -388,3 +391,68 @@ def test_gather_baseline_matches_plain(cuda):
             out = bench_gather.run_base(tab, idx, iters=iters, blocks=blocks, per_block=True)
             torch.cuda.synchronize()
             assert _blocks_equal(out, ref)
+
+
+def _frozen_pair(step, plain, sets, f, u, acc, kw):
+    """Each switch set of ``sets``: one launch of the variant and one call of
+    the plain version from (f, u), state and accumulator bit-equal."""
+    for sw in sets:
+        acc_k, acc_p = acc.clone(), acc.clone()
+        out_k = step(f, u, acc_k, sw)
+        out_p = plain(f, u, acc_p, sw)
+        torch.cuda.synchronize()
+        _assert_same(out_k[:2], out_p[:2])
+        assert torch.equal(acc_k, acc_p), sw
+        for k_, p_ in zip(out_k[2:], out_p[2:]):
+            assert torch.equal(k_, p_), sw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rr", [None, RR], ids=["exact", "fast"])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_grid_probe_variants(cuda, name, rr):
+    """The grid kernel's section-cost probes on every table layout: each
+    duplication's launch == the production kernel's (state and
+    accumulator), ``freeze`` and each removal under it == the plain version,
+    from a state one launch in."""
+    make, pitch = SCENES[name]
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(make(0.0), grid_pitch=pitch), cuda)
+    f, u, scal, vpr, geom = _state(ds, "grid")
+    acc = trace.home_accum(None, geom["p_total"], cuda)
+    kw = dict(geom, max_depth=50, skip_tmax=True, rr=rr, k_steps=10)
+    f, u = gridkernel.grid_megakernel_step(scal, vpr, ds.grid, f, u, acc, **kw)
+    f, u = trace.gather_lanes(f, u, trace.live_lanes(u[gridkernel.U_ALIVE]))
+
+    def step(fs, us, a, sw):
+        return gridkernel.grid_megakernel_step(scal, vpr, ds.grid, fs, us, a, ablate=sw, **kw)
+
+    def plain(fs, us, a, sw):
+        return gridkernel.grid_megakernel_step_plain(scal, vpr, ds.grid, fs, us, a,
+                                                     ablate=sw, **kw)
+
+    _frozen_pair(step, lambda fs, us, a, sw: step(fs, us, a, ()),
+                 [(d,) for d in gridkernel.DUPLICATIONS], f, u, acc, kw)
+    _frozen_pair(step, plain, [("freeze",)] + [("freeze", c) for c in gridkernel.SWITCHES
+                                               if c.startswith("cut_")], f, u, acc, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_paged_probe_variants(cuda, name):
+    """The paged kernel's ``freeze`` and each removal under it, on all four
+    template instances, == the plain version (state, accumulator and key)
+    from the driver's sorted lanes one launch in."""
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(_field(**FIELDS[name])), cuda)
+    f, u, scal, vpr, geom = _state(ds, "paged")
+    acc = trace.home_accum(None, geom["p_total"], cuda)
+    kw = dict(geom, max_depth=50, skip_tmax=True, k_steps=5)
+    f, u, key = pagedkernel.paged_megakernel_step(scal, vpr, ds.paged, f, u, acc, **kw)
+    f, u = trace.gather_lanes(f, u, trace.live_order(key))
+
+    def call(fn):
+        return lambda fs, us, a, sw: fn(scal, vpr, ds.paged, fs, us, a, ablate=sw, **kw)
+
+    _frozen_pair(call(pagedkernel.paged_megakernel_step),
+                 call(pagedkernel.paged_megakernel_step_plain),
+                 [("freeze",)] + [("freeze", c) for c in pagedkernel.SWITCHES
+                                  if c.startswith("cut_")], f, u, acc, kw)

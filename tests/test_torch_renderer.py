@@ -173,7 +173,7 @@ def test_out_of_slice_config_and_band_options_raise():
     vp = trace.viewport_arrays(reference_camera(), 8, 4)
     base = dict(band_h=4, width=8, y0=0, seed_y0=0, offset_x=0, spp=1, number=0,
                 max_depth=2, backend="grid")
-    for extra in (dict(ablate=("fetch2",)), dict(ablate=("iterstats", "cut_tea")),
+    for extra in (dict(ablate=("fuse2",)), dict(ablate=("iterstats", "state2")),
                   dict(grid_steps=(2, 40, False, 1)), dict(grid_steps=(2, 40))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trace.render_band(ds, vp, **base, **extra)
