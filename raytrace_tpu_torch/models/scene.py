@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..ops import launches
 from .mt19937 import MT19937, uniform_float
 
 # Material codes — matches MaterialType, reference src/scene.h:5-9
@@ -95,6 +96,13 @@ def generate_random_scene(t: float = 0.0) -> SceneArrays:
 
     ``t`` is the animation time in seconds (reference: wall clock, scene.h:82-83).
     """
+    with launches.span("scene.generate") as rec:
+        scene = _book_scene(t)
+        rec.set(n_spheres=int(scene.n_spheres))
+    return scene
+
+
+def _book_scene(t: float) -> SceneArrays:
     S = MAX_SPHERE_AMOUNT
     centers = np.zeros((S, 3), np.float32)
     radii = np.zeros((S,), np.float32)
@@ -192,10 +200,15 @@ def random_sphere_field(count: int, seed: int = 0, extent: float = 50.0,
     the interval instead of the book's fixed y=0.2 — such scenes exercise
     the grid backend's general 5-value layout (models/grid.py has_cy).
     """
+    with launches.span("scene.generate", n_spheres=count + 4):
+        return _sphere_field(count, seed, extent, t, y_range)
+
+
+def _sphere_field(count, seed, extent, t, y_range) -> SceneArrays:
     n = count + 4
     s = max(128, -(-n // 128) * 128)
     rng = np.random.default_rng(seed)
-    base = generate_random_scene(t)
+    base = _book_scene(t)
     sc = SceneArrays(
         centers=np.zeros((s, 3), np.float32),
         radii=np.zeros((s,), np.float32),

@@ -29,7 +29,9 @@ Backends:
   the pixel sums in a home-order accumulator (``_render_band_paged``).
 
 Each kernel wrapper decides between its CUDA kernel and its plain torch
-version by the state tensor's device.
+version by the state tensor's device.  While torch's profiler runs, the
+grid and paged loops log each band's set-up and each launch (its live
+lanes, iterations and host timestamps) as spans (``ops/launches.py``).
 
 Seed/uv conventions: ``y0`` is the band's global row (uv) and ``seed_y0`` the
 row origin for seeding; internal chunking passes ``seed_y0 = y0`` so chunked
@@ -51,6 +53,7 @@ from ..models.paged_grid import (P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ, P_INVS,
                                  PagedGridTables, build_paged_grid)
 from ..models.scene import SceneArrays
 from . import fp
+from . import launches
 from . import materials
 from . import rng as rngops
 from .intersect import (intersect_bruteforce, intersect_matmul,
@@ -104,18 +107,20 @@ def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
     grid tables and, for a scene the grid cannot hold, the paged-grid tables.
     ``grid_pitch``: cell size in world units, or "auto" (pitch 2 when it
     keeps the 4-value layout, else pitch 1)."""
-    centers = np.asarray(scene.centers, np.float32)
-    radii = np.asarray(scene.radii, np.float32)
-    n = int(scene.n_spheres)
-    valid = np.arange(centers.shape[0]) < n
-    table = sphere_table(scene)
-    if grid_pitch == "auto":
-        grid = build_grid(scene, table, pitch=2.0)
-        if grid is None or grid.has_cy is not None:
-            grid = build_grid(scene, table, pitch=1.0)
-    else:
-        grid = build_grid(scene, table, pitch=float(grid_pitch))
-    paged = None if grid is not None else build_paged_grid(scene, table)
+    with launches.span("scene.prepare") as rec:
+        centers = np.asarray(scene.centers, np.float32)
+        radii = np.asarray(scene.radii, np.float32)
+        n = int(scene.n_spheres)
+        valid = np.arange(centers.shape[0]) < n
+        table = sphere_table(scene)
+        if grid_pitch == "auto":
+            grid = build_grid(scene, table, pitch=2.0)
+            if grid is None or grid.has_cy is not None:
+                grid = build_grid(scene, table, pitch=1.0)
+        else:
+            grid = build_grid(scene, table, pitch=float(grid_pitch))
+        paged = None if grid is not None else build_paged_grid(scene, table)
+        rec.set(tables="grid" if grid is not None else "paged" if paged is not None else None)
     return DeviceScene(
         centers=centers,
         centers_t=np.ascontiguousarray(centers.T),
@@ -674,30 +679,45 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     if backend == "grid" and scene.grid is None:
         raise ValueError("grid backend requires a grid-able scene")
     dev = scene.table.device
-    if passign is not None:
-        passign = torch.as_tensor(passign, dtype=torch.int32, device=dev)
-    fstate, ustate, scal, vpr, geom = pack_state(
-        scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
-        seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
-        accum_init=None if backend == "grid" else accum_init,
-        pixels_per_lane=pixels_per_lane, n_calls=n_calls, spp_last=spp_last,
-        passign=passign)
+    with launches.span("band.setup", backend=backend, y0=y0) as setup:
+        if passign is not None:
+            passign = torch.as_tensor(passign, dtype=torch.int32, device=dev)
+        fstate, ustate, scal, vpr, geom = pack_state(
+            scene, vp, backend=backend, band_h=band_h, width=width, y0=y0,
+            seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
+            accum_init=None if backend == "grid" else accum_init,
+            pixels_per_lane=pixels_per_lane, n_calls=n_calls, spp_last=spp_last,
+            passign=passign)
+        if backend == "grid":
+            acc = home_accum(accum_init, geom["p_total"], dev)
+        setup.set(n_lanes=geom["n_lanes"], m_slots=geom["m_slots"])
     if backend == "grid":
-        acc = home_accum(accum_init, geom["p_total"], dev)
         k = gridkernel.K_STEPS
         common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr,
                       k_steps=k, j_steps=gridkernel.J_STEPS, passign=passign,
                       iterstats=iterstats, ablate=ablate)
+        rec, index, n_first = launches.NO_RECORD, 0, 0
         while True:
-            live = live_lanes(ustate[gridkernel.U_ALIVE])
-            if live.numel() == 0:
+            with launches.section("grid.count"):
+                live = live_lanes(ustate[gridkernel.U_ALIVE])
+            rec.stamp("t_done")  # the previous launch's
+            n_live = live.numel()
+            if n_live == 0:
                 break
-            if live.numel() < ustate.shape[1]:
-                fstate, ustate = gather_lanes(fstate, ustate, live)
-            if iters is not None:
-                _count_iters(iters, k, live.numel())
-            fstate, ustate = gridkernel.grid_megakernel_step(
-                scal, vpr, scene.grid, fstate, ustate, acc, **common)
+            n_first = n_first or n_live  # the band's first launch's
+            with launches.span("grid.launch", index=index, n_live=n_live,
+                               n_first=n_first, k=k) as rec:
+                rec.stamp("t_counted")
+                if n_live < ustate.shape[1]:
+                    with launches.section("grid.compact"):
+                        fstate, ustate = gather_lanes(fstate, ustate, live)
+                if iters is not None:
+                    _count_iters(iters, k, n_live)
+                with launches.section("grid.step"):
+                    fstate, ustate = gridkernel.grid_megakernel_step(
+                        scal, vpr, scene.grid, fstate, ustate, acc, **common)
+                rec.stamp("t_issued")
+            index += 1
             yield issued(dev)
         return acc.reshape(band_h, width, 3)
 
@@ -819,23 +839,37 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
     if scene.paged is None:
         raise ValueError("paged backend requires a paged-grid-able scene")
     g = scene.paged
-    fstate, ustate, scal, vpr, geom = pack_state(
-        scene, vp, backend="paged", band_h=band_h, width=width, y0=y0,
-        seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
-        pixels_per_lane=pixels_per_lane)
-    acc = home_accum(accum_init, geom["p_total"], fstate.device)
+    with launches.span("band.setup", backend="paged", y0=y0) as setup:
+        fstate, ustate, scal, vpr, geom = pack_state(
+            scene, vp, backend="paged", band_h=band_h, width=width, y0=y0,
+            seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
+            pixels_per_lane=pixels_per_lane)
+        acc = home_accum(accum_init, geom["p_total"], fstate.device)
+        key = _rebucket_key(fstate, ustate, g.gscal)
+        setup.set(n_lanes=geom["n_lanes"], m_slots=geom["m_slots"])
     k = pagedkernel.scaled_k(geom["n_lanes"])
     common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k,
                   ablate=ablate)
-    key = _rebucket_key(fstate, ustate, g.gscal)
+    rec, index, n_first = launches.NO_RECORD, 0, 0
     while True:
-        perm = live_order(key)
-        if perm.numel() == 0:
+        with launches.section("paged.order"):
+            perm = live_order(key)
+        rec.stamp("t_done")  # the previous launch's
+        n_live = perm.numel()
+        if n_live == 0:
             break
-        fstate, ustate = gather_lanes(fstate, ustate, perm)
-        if iters is not None:
-            _count_iters(iters, k, perm.numel())
-        fstate, ustate, key = pagedkernel.paged_megakernel_step(
-            scal, vpr, g, fstate, ustate, acc, **common)
+        n_first = n_first or n_live  # the band's first launch's
+        with launches.span("paged.launch", index=index, n_live=n_live, n_first=n_first,
+                           k=k) as rec:
+            rec.stamp("t_counted")
+            with launches.section("paged.gather"):
+                fstate, ustate = gather_lanes(fstate, ustate, perm)
+            if iters is not None:
+                _count_iters(iters, k, n_live)
+            with launches.section("paged.step"):
+                fstate, ustate, key = pagedkernel.paged_megakernel_step(
+                    scal, vpr, g, fstate, ustate, acc, **common)
+            rec.stamp("t_issued")
+        index += 1
         yield issued(fstate.device)
     return acc.reshape(band_h, width, 3)

@@ -4,7 +4,12 @@ Port of ``raytrace_tpu/runtime/profiling.py``.  The reference has host
 wall-clocks only (std::chrono around the frame loop); ``device_trace``
 records a trace of the card through ``torch.profiler`` (CUPTI), where the
 JAX package wraps ``jax.profiler``, and ``FrameStats`` is the JAX class as
-it is.
+it is.  While ``device_trace`` runs, the program's spans
+(``ops/launches.py``) record too: the trace shows their ``rt.*`` ranges
+(the render call, each band's set-up, each grid or paged launch and its
+count, compaction and step, the scene's generation and tables) as host
+ranges nested with the torch ops, and ``ops.launches.records()`` returns
+their log.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from ..config import RenderConfig
 from ..models.camera import Camera
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
+from ..ops import launches
 from ..ops.trace import (LANE_PAD, DeviceScene, device_scene_from_numpy,
                          prepare_scene, render_band, tmax_never_binds,
                          viewport_arrays)
@@ -134,10 +135,12 @@ class Renderer:
     def set_scene(self, scene: SceneArrays) -> None:
         """Render ``scene`` from now on: its tables go to the device and the
         backend is resolved again."""
-        self.scene = scene
-        self.device_scene = device_scene_from_numpy(prepare_scene(scene), self.device)
-        self.backend = resolve_backend(self.config.backend, self.device_scene)
-        self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
+        with launches.span("renderer.set_scene") as rec:
+            self.scene = scene
+            self.device_scene = device_scene_from_numpy(prepare_scene(scene), self.device)
+            self.backend = resolve_backend(self.config.backend, self.device_scene)
+            self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
+            rec.set(backend=self.backend)
 
     def _bands(self):
         h = self.config.height
@@ -178,19 +181,21 @@ class Renderer:
             accum = torch.as_tensor(accum, device=self.device)
         bands = []
         tile_iters = lane_slots = 0
-        for band_y0, band_h in self._bands():
-            out = render_band(
-                **self._band_kwargs(band_y0, band_h), spp=spp, number=number,
-                accum_init=None if accum is None else accum[band_y0 : band_y0 + band_h],
-                n_calls=n_calls, spp_last=spp_last,
-                passign=None if self._passign is None else self._passign.get(band_y0),
-                ablate=ablate, return_iters=return_iters)
-            if return_iters:
-                out, (ti, ls) = out
-                tile_iters += ti
-                lane_slots += ls
-            bands.append(out)
-        acc = torch.cat(bands, dim=0)
+        layout = list(self._bands())
+        with launches.span("renderer.call", spp=spp, n_calls=n_calls or 1, bands=len(layout)):
+            for band_y0, band_h in layout:
+                out = render_band(
+                    **self._band_kwargs(band_y0, band_h), spp=spp, number=number,
+                    accum_init=None if accum is None else accum[band_y0 : band_y0 + band_h],
+                    n_calls=n_calls, spp_last=spp_last,
+                    passign=None if self._passign is None else self._passign.get(band_y0),
+                    ablate=ablate, return_iters=return_iters)
+                if return_iters:
+                    out, (ti, ls) = out
+                    tile_iters += ti
+                    lane_slots += ls
+                bands.append(out)
+            acc = torch.cat(bands, dim=0)
         return (acc, tile_iters, lane_slots) if return_iters else acc
 
     def enable_balance(self, probe_spp: Optional[int] = None) -> dict:

@@ -1,0 +1,159 @@
+"""Port: the program's spans (ops/launches.py ``span``, ``section``,
+``records``) in the renderer, the band drivers and the scene generators.
+
+Off (no profiler running) a span records nothing and opens no profiler
+range.  On, each render call logs one ``renderer.call``, one ``band.setup``
+per band under it and one ``grid.launch`` or ``paged.launch`` per kernel
+launch, whose live counts add up to the driver's own lane-slot tally; the
+profiler sees the ``rt.*`` ranges as function ranges, not as user
+annotations (which the profiler copies onto the device's timeline).  The
+image is the same either way.
+"""
+
+import sys
+import threading
+import time
+
+import pytest
+import torch
+
+from raytrace_tpu_torch import RenderConfig
+from raytrace_tpu_torch.models.scene import generate_random_scene, random_sphere_field
+from raytrace_tpu_torch.ops import gridkernel, launches, pagedkernel
+from raytrace_tpu_torch.ops.trace import LANE_PAD
+from raytrace_tpu_torch.runtime.renderer import Renderer
+
+torch.set_num_threads(1)
+
+STEP = {"grid": gridkernel.grid_megakernel_step_plain,
+        "paged": pagedkernel.paged_megakernel_step_plain}
+SECTIONS = {"grid": ("rt.grid.count", "rt.grid.compact", "rt.grid.step"),
+            "paged": ("rt.paged.order", "rt.paged.gather", "rt.paged.step")}
+
+
+def _scene(backend):
+    if backend == "grid":
+        return generate_random_scene(0.0)
+    return random_sphere_field(2000, seed=1, extent=7.0)
+
+
+def _renderer(backend):
+    cfg = RenderConfig(samples=1, width=16, height=8, max_depth=3)
+    r = Renderer(cfg, scene=_scene(backend), device="cpu")
+    assert r.backend == backend
+    r.chunk_rows = 3  # three bands of 3, 3 and 2 rows
+    return r
+
+
+def _profiled():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.mark.parametrize("backend", ["grid", "paged"])
+def test_off_records_nothing_and_opens_no_range(backend, monkeypatch):
+    def no_range(name):
+        raise AssertionError(f"a profiler range {name!r} was opened with the profiler off")
+
+    monkeypatch.setattr(launches, "_RANGE", no_range)
+    t0 = time.perf_counter()
+    r = _renderer(backend)
+    r.set_scene(_scene(backend))
+    r.render_call(1)
+    assert not launches.recording()
+    assert launches.records(t0) == []
+
+
+@pytest.mark.parametrize("backend", ["grid", "paged"])
+def test_on_one_record_per_call_band_and_launch(backend):
+    r = _renderer(backend)
+    launches_before = STEP[backend].launches
+    t0 = time.perf_counter()
+    with _profiled() as prof:
+        r.set_scene(_scene(backend))
+        _, _, lane_slots = r.render_call(1, number=3, return_iters=True)
+    recs = launches.records(t0)
+    by_name = {}
+    for rec in recs:
+        by_name.setdefault(rec.name, []).append(rec)
+
+    (put,) = by_name["renderer.set_scene"]
+    (prep,) = by_name["scene.prepare"]
+    assert put.attrs["backend"] == backend and prep.attrs["tables"] == backend
+    assert prep.parent == put.id and put.t0 <= prep.t0 <= prep.t1 <= put.t1
+
+    (call,) = by_name["renderer.call"]
+    assert call.attrs == {"spp": 1, "n_calls": 1, "bands": 3}
+    setups = by_name["band.setup"]
+    assert [s.attrs["y0"] for s in setups] == [0, 3, 6]
+    assert all(s.parent == call.id and s.attrs["backend"] == backend for s in setups)
+    assert all(s.attrs["n_lanes"] > 0 and s.attrs["m_slots"] >= 1 for s in setups)
+
+    runs = by_name[f"{backend}.launch"]
+    assert len(runs) == STEP[backend].launches - launches_before
+    assert sum(x.attrs["k"] * -(-x.attrs["n_live"] // LANE_PAD) * LANE_PAD
+               for x in runs) == lane_slots
+    bands, first = 0, None
+    for x in runs:
+        a = x.attrs
+        assert x.parent == call.id and call.t0 <= x.t0 <= x.t1 <= call.t1
+        assert a["t_counted"] <= a["t_issued"] <= a["t_done"]
+        if a["index"] == 0:
+            bands, first = bands + 1, a["n_live"]
+        assert a["n_first"] == first and 0 < a["n_live"] <= first
+    assert bands == 3
+
+    names = {e.name: e for e in prof.events()}
+    for name in ("rt.renderer.call", "rt.renderer.set_scene", "rt.scene.prepare",
+                 "rt.scene.generate", "rt.band.setup", f"rt.{backend}.launch",
+                 *SECTIONS[backend]):
+        assert name in names, name
+        assert names[name].is_user_annotation is False, name
+
+
+@pytest.mark.parametrize("backend", ["grid", "paged"])
+def test_the_image_is_the_same_with_the_profiler_on(backend):
+    r = _renderer(backend)
+    plain = r.render_call(2, number=5)
+    with _profiled():
+        traced = r.render_call(2, number=5)
+    assert torch.equal(plain, traced)
+
+
+def test_spans_on_many_threads_keep_their_parents():
+    """Threads log into one list; each span's parent is the span open
+    around it on its own thread, and no record is lost."""
+    n_threads, n_spans = 16, 200
+    t0 = time.perf_counter()
+    errors = []
+
+    def work(i):
+        try:
+            for j in range(n_spans):
+                with launches.span("outer", thread=i, j=j) as outer:
+                    with launches.span("inner", thread=i, j=j) as inner:
+                        pass
+                    assert inner.parent == outer.id
+        except AssertionError as e:  # surfaced by the main thread below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with _profiled():
+            threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    recs = launches.records(t0)
+    outer = {r.id: r for r in recs if r.name == "outer"}
+    inner = [r for r in recs if r.name == "inner"]
+    assert len(outer) == len(inner) == n_threads * n_spans
+    assert len({r.id for r in recs}) == len(recs)
+    for r in inner:
+        o = outer[r.parent]
+        assert o.attrs == r.attrs and o.parent is None
