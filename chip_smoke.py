@@ -8,8 +8,8 @@ one line and raises on failure, so any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every source of ``_build.SOURCES`` in ``raytrace_tpu_torch/csrc``
-   (the megakernel, the grid, paged and fused intersect kernels, and the
-   gather probe with its loop baseline; one nvcc per source, started
+   (the megakernel, the grid, paged and fused intersect kernels, the band
+   set-up, and the gather probe with its loop baseline; one nvcc per source, started
    together), and a PTX check that no fast-math
    instruction (approximate sqrt/div, rsqrt, sin) reached any of them; the
    registers, spills and resident blocks per SM of the grid and fused
@@ -35,7 +35,15 @@ one line and raises on failure, so any failure exits non-zero:
    3840x2160 lane count, with its home-order accumulator (every pixel
    bit-equal) and its sort-key row (equal to ``trace._rebucket_key``); and
    the fused intersect kernel (valid prefix; its plain version every row)
-   on the 259,200 rays of the book-scene state; and, untimed, every lane and
+   on the 259,200 rays of the book-scene state; the band set-up kernel
+   (``trace.pack_state``'s route on the card) against ``pack_state_plain``
+   on every row and lane of the book's 1080p band with and without its
+   balanced table, the 1-spp frame's call (65 merged calls under the M = 16
+   table), the 100k field's 4K band with its first sort key (timed: the
+   kernel alone, CUDA events between launches queued behind a spin, against
+   its bytes or integer operations), the three-sphere mega state with a
+   carried accumulator and two bands below the top with an x offset (one
+   of 0 spp); and, untimed, every lane and
    pixel bit-equal, the states phase 10's scripts launch at their scenes,
    sizes, M and spp: ``hw_validate``'s 5-value varied grid, ``ttab`` grid,
    paged varied and paged ``has_tex`` fields (on their kernel and on the
@@ -241,6 +249,11 @@ WATCHDOG_S = 1150
 # H100 SXM peaks (NVIDIA data sheet): device memory and fp32 outside the
 # tensor cores
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# 32-bit integer operations: 64 a clock per SM (the Hopper white paper) over
+# 132 SMs at the 1980 MHz maximum SM clock; a band set-up's lane does two
+# 16-round TEA hashes (8 a half-round) and four LCG draws (2 each)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+PACK_INT_OPS = 2 * 32 * 8 + 4 * 2
 # fp32 operations counted from csrc/wavefront.cuh (sqrt, divide, sin one
 # each): a ray-sphere quadratic; a live lane-iteration's ray terms; a
 # segment's end (shading, throughput, regeneration)
@@ -1512,6 +1525,94 @@ def main() -> int:
     record("paged_megakernel_step", "raytrace_tpu_torch/csrc/pagedkernel.cu",
            "raytrace_tpu/ops/pagedkernel.py:794", p_err, *p_res)
 
+    # the band set-up kernel against its plain version (``pack_state_plain``
+    # on the card) at the cells' states: the book's 1080p band at the
+    # renderer's M with and without its balanced table, the 1-spp frame's
+    # call (65 merged calls under the M = 16 table), the 100k field's 4K band
+    # with its first sort key, the three-sphere mega state with a carried
+    # accumulator, and a band below the top with an x offset and no samples;
+    # every row and lane bit-equal.  Timed: the kernel alone (CUDA events
+    # between launches queued behind a spin, so the host's dispatch is off
+    # the device's clock; median of 5) against the bytes it writes and reads
+    # at 3.35 TB/s or its integer operations (two TEA hashes, ~520 a lane)
+    # at 64 a clock per SM at 1980 MHz, whichever is larger; the plain
+    # version by ``cuda_ms``.
+    def pack_kernel_ms(out, dsc, backend, kw, reps=5):
+        f, u, s, v, geom = out[:5]
+        lane0 = {"grid": gridkernel.U_LANE0, "paged": pagedkernel.U_LANE0}.get(backend, -1)
+        args = dict(vpr_host=v.cpu().numpy(), scal_host=s.cpu().numpy(), lane0_row=lane0,
+                    n_lanes=geom["n_lanes"], p_total=geom["p_total"], width=geom["width"])
+        gscal = dsc.paged.gscal if backend == "paged" else None
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms: the launches queue behind it
+        for i in range(reps):
+            events[i].record()
+            trace.pack_kernel(f, u, out[5] if len(out) > 5 else None, v, s,
+                              kw.get("passign"), gscal, **args)
+        events[reps].record()
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+    def check_pack(label, backend, dsc, w, h, spp, m, timed=False, **pack):
+        vp_ = trace.viewport_arrays(cam, w, h + pack.get("y0", 0))
+        kw = dict(backend=backend, band_h=h, width=w, y0=0, seed_y0=0, offset_x=0,
+                  spp=spp, number=0, pixels_per_lane=m, first_key=backend == "paged")
+        kw.update(pack)
+        out_k = trace.pack_state(dsc, vp_, **kw)
+        out_p = trace.pack_state_plain(dsc, vp_, **kw)
+        torch.cuda.synchronize()
+        names = ("fstate", "ustate", "scal", "vpr", "geom", "key")
+        bad = {name: int((a.view(torch.int32) != b.view(torch.int32))
+                         .reshape(a.shape[0] if a.dim() > 1 else 1, -1).any(dim=0).sum())
+               for name, a, b in zip(names, out_k, out_p) if name != "geom"}
+        n = out_k[0].shape[1]
+        text, res = "", (None, None, None, None)
+        if timed:
+            ms = pack_kernel_ms(out_k, dsc, backend, kw)
+            plain_ms = cuda_ms(lambda: trace.pack_state_plain(dsc, vp_, **kw), 2)
+            moved = (nbytes(*[t for i, t in enumerate(out_k) if i != 4])
+                     + (n * 4 if "passign" in pack else 0))
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = PACK_INT_OPS * n / INT32_OPS_PER_S * 1e3
+            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                                               "operations")
+            text = (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per set-up, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {PACK_INT_OPS * n} integer "
+                    f"ops)")
+            res = (ms, plain_ms, bound_ms, bound_by)
+        phase("kernel", f"pack_state ({label}): {n} lanes (M={m}, {backend}), lanes "
+              f"differing from the plain version {bad}, geometry equal "
+              f"{out_k[4] == out_p[4]}{text}")
+        if any(bad.values()) or out_k[4] != out_p[4]:
+            raise RuntimeError(f"pack_state ({label}): kernel != plain {bad}")
+        return res
+
+    three_acc = torch.rand((MAIN_H, MAIN_W, 3), device=dev)
+    pack_ms = {}
+    for key, label, backend, dsc, w, h, spp, m, timed, pack in (
+            ("book", f"book {MAIN_W}x{MAIN_H}", "grid", ds, MAIN_W, MAIN_H, MAIN_SPP, m_main,
+             True, {}),
+            ("balanced", f"book {MAIN_W}x{MAIN_H} balanced", "grid", ds, MAIN_W, MAIN_H,
+             MAIN_SPP, m_main, True, dict(passign=table)),
+            ("frame", "the 1-spp frame's call", "grid", ds, MAIN_W, MAIN_H, 1,
+             bench.FRAME_LOOP_M, True, dict(loop, passign=tables[bench.FRAME_LOOP_M])),
+            ("field", f"{DENSE_N}-sphere field {DENSE_W}x{DENSE_H}", "paged", dds, DENSE_W,
+             DENSE_H, DENSE_SPP, lanes_m("paged", DENSE_W, DENSE_H), True, {}),
+            ("three", "three-sphere, carried accumulator", "mega", ds3, MAIN_W, MAIN_H,
+             MAIN_SPP, lanes_m("mega", MAIN_W, MAIN_H), False, dict(accum_init=three_acc)),
+            ("book_band", "book band y0=270 offset_x=64, 0 spp", "grid", ds, MAIN_W - 64, 270,
+             0, m_main, False, dict(y0=270, seed_y0=270, offset_x=64)),
+            ("field_band", "field band y0=540 offset_x=64", "paged", dds, DENSE_W - 64, 540,
+             DENSE_SPP, 3, False, dict(y0=540, seed_y0=540, offset_x=64))):
+        pack_ms[key] = check_pack(label, backend, dsc, w, h, spp, m, timed, **pack)
+    timings = {f"{key}{suffix}": r[i] for key, r in pack_ms.items() if key != "book"
+               and r[0] is not None for i, suffix in ((0, "_ms"), (1, "_plain_ms"),
+                                                      (2, "_bound_ms"))}
+    record("pack_state", "raytrace_tpu_torch/csrc/packstate.cu",
+           "none (port only: raytrace_tpu/ops/trace.py pack_state is one XLA fusion)", 0.0,
+           *pack_ms["book"], **timings)
+
     # the layouts and operating points that phase 10's scripts launch beyond
     # the main path's, each at the script's scene, size, M and spp (every
     # lane and accumulator pixel bit-equal, exact and fast; untimed):
@@ -1734,14 +1835,13 @@ def main() -> int:
         raise RuntimeError("grid and mega differ at full width")
 
     # ---- 5. main path ------------------------------------------------------
+    plains = (gridkernel.grid_megakernel_step_plain, megakernel.megakernel_step_plain,
+              pagedkernel.paged_megakernel_step_plain,
+              pallas_intersect.intersect_shade_pallas_plain, trace.pack_state_plain)
     counters = (gridkernel.grid_megakernel_step, megakernel.megakernel_step,
                 pagedkernel.paged_megakernel_step,
-                pallas_intersect.intersect_shade_pallas,
-                gridkernel.grid_megakernel_step_plain,
-                megakernel.megakernel_step_plain,
-                pagedkernel.paged_megakernel_step_plain,
-                pallas_intersect.intersect_shade_pallas_plain)
-    plain_names = [c.__name__ for c in counters[4:]]
+                pallas_intersect.intersect_shade_pallas, trace.pack_state) + plains
+    plain_names = [c.__name__ for c in plains]
     sort_events, gather_events, live = [], [], []
     orig_order, orig_gather = trace.live_order, trace.gather_lanes
 

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (nvcc -> one shared library -> ctypes).
 
 The sources are ``SOURCES`` in ``csrc/``: the brute-force megakernel, the
-grid and paged wavefront kernels, the fused intersect kernel and the
-lane-gather probe with its loop baseline (``bench_gather.cu``).  They have a
+grid and paged wavefront kernels, the fused intersect kernel, a band's
+set-up (``packstate.cu``) and the lane-gather probe with its loop baseline
+(``bench_gather.cu``).  They have a
 plain C interface and include no PyTorch headers, so nvcc builds each in seconds; one nvcc process per source (and
 one per PTX file) is started at once, and the objects are then linked into
 one library.  The library lands in ``build/kernels/<hash>/`` at the
@@ -54,7 +55,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO = Path(__file__).resolve().parent.parent
 BUILD_ROOT = REPO / "build" / "kernels"
 SOURCES = ("megakernel.cu", "gridkernel.cu", "pagedkernel.cu", "intersect.cu",
-           "bench_gather.cu")
+           "packstate.cu", "bench_gather.cu")
 HEADERS = ("wavefront.cuh",)
 ARCH = "sm_90a"
 FLAGS = ("-std=c++17", "-O3", "--fmad=false")
@@ -81,6 +82,9 @@ _SIGNATURES = {
     "rt_intersect_shade": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     # device; out [4]
     "rt_intersect_occupancy": [_INT, _VOIDP],
+    # vpr and scal on the host, passign, gscal, vpr, scal, fstate, ustate,
+    # key (passign, gscal and key may be NULL); 7 ints, device; stream
+    "rt_pack_state": [_VOIDP] * 9 + [_INT] * 8 + [_VOIDP],
     # tab, idx, out; iters, axis, blocks, device; stream
     "rt_gather_bench": [_VOIDP] * 3 + [_INT] * 4 + [_VOIDP],
     # tab, out; iters, blocks, device; stream

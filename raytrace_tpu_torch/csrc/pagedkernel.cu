@@ -66,10 +66,6 @@ constexpr int R_WCX = 16, R_WCZ = 17, R_CUR = 18, R_ATT = 21;
 constexpr int U_MARCH = 5, U_CELL = 6, U_LANE0 = 7, U_ROWS = 8;
 constexpr float TAG = 8388608.0f;  // 2^23: bkey >= TAG is a global winner
 constexpr int BLOCK = 128;
-// sort keys beyond every Morton page code: a ray that misses the grid box,
-// and a dead lane (sorted last, then dropped)
-constexpr int KEY_MISS = 1 << 30, KEY_DEAD = 0x7fffffff;
-constexpr float KEY_BIG = 3.0e30f;  // the key's degenerate-slab bound
 
 #ifndef RT_ABLATE
 #define RT_ABLATE 0
@@ -86,10 +82,12 @@ constexpr bool CUT_TEA = RT_ABLATE & (1u << 7);
 constexpr bool CUT_CAMERA = RT_ABLATE & (1u << 8);
 constexpr bool FREEZE = RT_ABLATE & (1u << 9);
 
-// gscal slots (models/paged_grid.py P_*)
-constexpr int P_XLO = 0, P_XHI = 1, P_YLO = 2, P_YHI = 3, P_ZLO = 4, P_ZHI = 5;
-constexpr int P_FMINX = 6, P_FMINZ = 7, P_CY = 9, P_FMAXX = 10, P_FMAXZ = 11;
-constexpr int P_INVS = 12, P_S = 13, P_NSCZM = 14;
+// the gscal slots and the sort key live in wavefront.cuh, where the band
+// set-up (packstate.cu) computes the first key by the same function
+using rt::P_XLO, rt::P_XHI, rt::P_YLO, rt::P_YHI, rt::P_ZLO, rt::P_ZHI;
+using rt::P_FMINX, rt::P_FMINZ, rt::P_CY, rt::P_FMAXX, rt::P_FMAXZ;
+using rt::P_INVS, rt::P_S, rt::P_NSCZM;
+using rt::KEY_DEAD, rt::rebucket_key;
 
 struct PagedParams {
   const int32_t* scal;
@@ -123,54 +121,6 @@ __device__ __forceinline__ uint32_t probe_zero(const PagedParams& P) {
 }
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-
-// trace.py:_morton: interleave two page coordinates
-__device__ __forceinline__ int morton_part(int v) {
-  v = (v | (v << 8)) & 0x00F00F;
-  v = (v | (v << 4)) & 0x0C30C3;
-  v = (v | (v << 2)) & 0x249249;
-  return v;
-}
-__device__ __forceinline__ int morton(int sx, int sz) {
-  return morton_part(sx) | (morton_part(sz) << 1);
-}
-
-__device__ __forceinline__ void key_clip(float o, float d, float lo, float hi,
-                                         float& t0, float& t1) {
-  const float inv = 1.0f / d;
-  const float ta = (lo - o) * inv;
-  const float tb = (hi - o) * inv;
-  t0 = rt::jmin(ta, tb);
-  t1 = rt::jmax(ta, tb);
-  if (d == 0.0f) {
-    const bool inside = o >= lo && o <= hi;
-    t0 = inside ? -KEY_BIG : KEY_BIG;
-    t1 = inside ? KEY_BIG : -KEY_BIG;
-  }
-}
-
-// trace.py:_rebucket_key for one lane: a marching lane's page, a fresh
-// lane's page where its ray enters the grid box
-__device__ __forceinline__ int rebucket_key(const float* gs, bool alive, bool marching,
-                                            int cell, float ox, float oy, float oz,
-                                            float dx, float dy, float dz) {
-  if (!alive) return KEY_DEAD;
-  if (marching) return morton((cell >> 12) >> 3, (cell & 4095) >> 3);
-  float t0x, t1x, t0y, t1y, t0z, t1z;
-  key_clip(ox, dx, gs[P_XLO], gs[P_XHI], t0x, t1x);
-  key_clip(oy, dy, gs[P_YLO], gs[P_YHI], t0y, t1y);
-  key_clip(oz, dz, gs[P_ZLO], gs[P_ZHI], t0z, t1z);
-  const float t_start = rt::jmax(rt::jmax(t0x, t0y), rt::jmax(t0z, 1e-3f));
-  const float t_end = rt::jmin(rt::jmin(t1x, t1y), t1z);
-  if (!(t_start <= t_end)) return KEY_MISS;
-  const float pxw = ox + t_start * dx;
-  const float pzw = oz + t_start * dz;
-  const float icx = rt::jmin(rt::jmax(floorf((pxw - gs[P_FMINX]) * gs[P_INVS]), 0.0f),
-                             gs[P_FMAXX]);
-  const float icz = rt::jmin(rt::jmax(floorf((pzw - gs[P_FMINZ]) * gs[P_INVS]), 0.0f),
-                             gs[P_FMAXZ]);
-  return morton((int)icx >> 3, (int)icz >> 3);
-}
 
 template <bool FIVE, bool TEXTURED>
 __global__ void __launch_bounds__(BLOCK) paged_megakernel_step_kernel(PagedParams P) {

@@ -29,9 +29,12 @@ Backends:
   the pixel sums in a home-order accumulator (``_render_band_paged``).
 
 Each kernel wrapper decides between its CUDA kernel and its plain torch
-version by the state tensor's device.  While torch's profiler runs, the
-grid and paged loops log each band's set-up and each launch (its live
-lanes, iterations and host timestamps) as spans (``ops/launches.py``).
+version by the state tensor's device, and so does a band's set-up
+(``pack_state``: one launch of ``csrc/packstate.cu``, or
+``pack_state_plain``'s torch ops).  While torch's profiler runs, the grid
+and paged loops log each band's set-up (with the route it took) and each
+launch (its live lanes, iterations and host timestamps) as spans
+(``ops/launches.py``).
 
 Seed/uv conventions: ``y0`` is the band's global row (uv) and ``seed_y0`` the
 row origin for seeding; internal chunking passes ``seed_y0 = y0`` so chunked
@@ -552,14 +555,72 @@ def _state_module(scene, backend, m_slots):
     return megakernel, megakernel.f_rows(m_slots)
 
 
+def state_route(device) -> str:
+    """The route a band's set-up takes on ``device``: ``kernel``, one launch
+    of ``csrc/packstate.cu`` on a CUDA device, else ``plain``,
+    ``pack_state_plain``'s torch ops."""
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
+def _band_lanes(band_h, width, pixels_per_lane, lane_pad):
+    """(p_total, m_slots, logical lanes, padded lanes) of a band."""
+    p_total = band_h * width
+    m_slots = max(1, min(pixels_per_lane, p_total))
+    n = -(-p_total // m_slots)
+    return p_total, m_slots, n, -(-n // lane_pad) * lane_pad
+
+
+def _check_pack(backend, passign, accum_init, first_key, m_slots, n_pad):
+    if passign is not None and (tuple(passign.shape) != (m_slots, n_pad)
+                                or passign.dtype != torch.int32):
+        raise ValueError(f"passign {tuple(passign.shape)} {passign.dtype}, want "
+                         f"({m_slots}, {n_pad}) int32")
+    if accum_init is not None and backend in ("grid", "paged"):
+        raise ValueError(f"{backend} state has no accumulator rows: pass "
+                         "accum_init to home_accum")
+    if first_key and backend != "paged":
+        raise ValueError("the first sort key belongs to the paged backend")
+
+
+def _scalars(*, spp, number, y0, seed_y0, offset_x, n_calls, spp_last):
+    """The kernels' (1, 8) int32 scalar slots (megakernel.S_*), on the
+    host."""
+    from . import megakernel
+
+    s = np.zeros((1, 8), np.int64)
+    s[0, megakernel.S_SPP] = spp
+    s[0, megakernel.S_NUMBER] = np.uint32(number).astype(np.int32)
+    s[0, megakernel.S_Y0] = y0
+    s[0, megakernel.S_SEEDY0] = seed_y0
+    s[0, megakernel.S_OFFX] = offset_x
+    s[0, megakernel.S_NCALLS] = 1 if n_calls is None else n_calls
+    s[0, megakernel.S_SPPLAST] = spp if spp_last is None else spp_last
+    return s.astype(np.int32)
+
+
+def _fill_accum(fstate, accum_init, *, p_total, m_slots, n):
+    """Copy ``accum_init`` into a brute-force (mega) state's accumulator
+    rows, slot-major, over its ``n`` logical lanes."""
+    from . import megakernel
+
+    flat = accum_init.reshape(p_total, 3).to(device=fstate.device, dtype=torch.float32)
+    pad = n * m_slots - p_total
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, 3))], dim=0)
+    acc_rows = flat.reshape(m_slots, n, 3).permute(0, 2, 1).reshape(3 * m_slots, n)
+    fstate[megakernel.R_ACC : megakernel.R_ACC + 3 * m_slots, :n] = acc_rows
+
+
 def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
                width, y0, seed_y0, offset_x, spp, number, accum_init=None,
                pixels_per_lane=1, lane_pad=LANE_PAD, n_calls=None,
-               spp_last=None, passign=None):
+               spp_last=None, passign=None, first_key=False):
     """Pack a band's initial wavefront state for the kernel steps.
 
     Returns (fstate [rows, n_pad] f32, ustate [U_ROWS, n_pad] int32
-    holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict).
+    holding u32 bits, scal [1, 8] int32, vpr [1, 24] f32, geometry dict),
+    and with ``first_key`` (paged only) the first launch's sort key [n_pad]
+    int32 (``_rebucket_key`` of the state) after them.
     Slot 0 of lane k is pixel k, or ``passign[0, k]`` when a balanced table
     int32 [m_slots, n_pad] is given (grid only; a lane whose entry is the
     ``p_total`` sentinel starts dead); ``grid`` and ``paged`` state also
@@ -567,20 +628,99 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     (``home_accum`` makes its accumulator, and ``accum_init`` raises).
     ``n_calls`` / ``spp_last`` fill the scalar slots of the grid kernel's
     call merge (default: one call of ``spp``).  The first camera ray comes
-    from the kernels' own ``camera_rays_rows``, so every sample of the
-    kernel path is generated by one formula and the image is bit-identical
-    for any M.  (The JAX drivers
-    use the spec ``_camera_rays`` here; XLA rewrites both normalizations to
-    ``v * rsqrt(n2)`` so the difference never shows there, but in IEEE
-    arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))`` differ in the last
-    bit.)"""
+    from the kernels' own camera formula, so every sample of the kernel
+    path is generated by one formula and the image is bit-identical for any
+    M.  (The JAX drivers use the spec ``_camera_rays`` here; XLA rewrites
+    both normalizations to ``v * rsqrt(n2)`` so the difference never shows
+    there, but in IEEE arithmetic ``v / sqrt(n2)`` and ``v * (1 / sqrt(n2))``
+    differ in the last bit.)
+
+    The route follows the scene's device (``state_route``): on a CUDA
+    device one launch of ``csrc/packstate.cu`` writes every row, ``scal``,
+    ``vpr`` and the key, copying nothing from the host (the brute-force
+    state's accumulator rows are copied in after it), each counted in
+    ``pack_state.launches``; elsewhere ``pack_state_plain`` packs the same
+    state bit for bit with torch ops."""
+    kw = dict(backend=backend, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
+              offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
+              pixels_per_lane=pixels_per_lane, lane_pad=lane_pad, n_calls=n_calls,
+              spp_last=spp_last, passign=passign, first_key=first_key)
+    dev = scene.table.device
+    if state_route(dev) == "plain":
+        return pack_state_plain(scene, vp, **kw)
+    p_total, m_slots, n, n_pad = _band_lanes(band_h, width, pixels_per_lane, lane_pad)
+    _check_pack(backend, passign, accum_init, first_key, m_slots, n_pad)
+    mk, rf = _state_module(scene, backend, m_slots)
+    if passign is not None and (passign.device != dev or not passign.is_contiguous()):
+        raise ValueError(f"passign must be contiguous on {dev}")
+    gscal = scene.paged.gscal if first_key else None
+    if gscal is not None and (gscal.dtype != torch.float32 or gscal.numel() < 16
+                              or not gscal.is_contiguous()):
+        raise ValueError("gscal must hold 16 contiguous float32 values")
+    vpr = torch.empty((1, 24), dtype=torch.float32, device=dev)
+    scal = torch.empty((1, 8), dtype=torch.int32, device=dev)
+    fstate = torch.empty((rf, n_pad), dtype=torch.float32, device=dev)
+    ustate = torch.empty((mk.U_ROWS, n_pad), dtype=torch.int32, device=dev)
+    key = torch.empty(n_pad, dtype=torch.int32, device=dev) if first_key else None
+    pack_kernel(fstate, ustate, key, vpr, scal, passign, gscal,
+                vpr_host=viewport_scalars(vp),
+                scal_host=_scalars(spp=spp, number=number, y0=y0, seed_y0=seed_y0,
+                                   offset_x=offset_x, n_calls=n_calls, spp_last=spp_last),
+                lane0_row=mk.U_LANE0 if backend in ("grid", "paged") else -1, n_lanes=n,
+                p_total=p_total, width=width)
+    launches.count(pack_state)
+    if accum_init is not None:
+        _fill_accum(fstate, accum_init, p_total=p_total, m_slots=m_slots, n=n)
+    geom = dict(m_slots=m_slots, n_lanes=n, p_total=p_total, width=width)
+    out = (fstate, ustate, scal, vpr, geom)
+    return out + (key,) if first_key else out
+
+
+pack_state.launches = 0
+
+
+def pack_kernel(fstate, ustate, key, vpr, scal, passign, gscal, *, vpr_host, scal_host,
+                lane0_row, n_lanes, p_total, width):
+    """One launch of ``csrc/packstate.cu`` on the current stream, writing a
+    band's initial state into ``fstate`` / ``ustate`` (every row of every
+    lane), the host arrays ``vpr_host`` (f32 [1, 24], ``viewport_scalars``)
+    and ``scal_host`` (int32 [1, 8]) into ``vpr`` and ``scal`` on the
+    device, which the launch takes by value, and, given ``key`` (and the
+    paged grid's ``gscal``), the first sort key; ``lane0_row``: the u32 row
+    that holds the lane's index, -1 for none.  ``pack_state``'s kernel
+    route, checked by it."""
+    from .. import _build
+
+    vpr_host = np.ascontiguousarray(vpr_host, np.float32)
+    scal_host = np.ascontiguousarray(scal_host, np.int32)
+    if vpr_host.size != 24 or scal_host.size != 8:
+        raise ValueError("vpr_host must hold 24 float32 and scal_host 8 int32 values")
+    dev = fstate.device
+    err = _build.library().rt_pack_state(
+        vpr_host.ctypes.data, scal_host.ctypes.data,
+        None if passign is None else passign.data_ptr(),
+        None if gscal is None else gscal.data_ptr(), vpr.data_ptr(), scal.data_ptr(),
+        fstate.data_ptr(), ustate.data_ptr(), None if key is None else key.data_ptr(),
+        fstate.shape[1], fstate.shape[0], ustate.shape[0], lane0_row, n_lanes, p_total,
+        width, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"band set-up kernel launch failed: {_build.error_string(err)}")
+
+
+def pack_state_plain(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
+                     width, y0, seed_y0, offset_x, spp, number, accum_init=None,
+                     pixels_per_lane=1, lane_pad=LANE_PAD, n_calls=None,
+                     spp_last=None, passign=None, first_key=False):
+    """The plain torch version of ``pack_state``, on any device: the TEA
+    seed hashes in masked int64 (``ops/rng.py``), the kernels' camera rays
+    on lane rows (``megakernel.camera_rays_rows``), the rows filled one by
+    one and the first key by ``_rebucket_key``; counted in its ``launches``
+    attribute."""
     from . import megakernel
 
     dev = scene.table.device
-    p_total = band_h * width
-    m_slots = max(1, min(pixels_per_lane, p_total))
-    n = -(-p_total // m_slots)  # logical lanes
-    n_pad = -(-n // lane_pad) * lane_pad
+    p_total, m_slots, n, n_pad = _band_lanes(band_h, width, pixels_per_lane, lane_pad)
+    _check_pack(backend, passign, accum_init, first_key, m_slots, n_pad)
     mk, rf = _state_module(scene, backend, m_slots)
 
     lane = torch.arange(n_pad, dtype=torch.int64, device=dev)
@@ -588,9 +728,6 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
         pix0 = lane
         alive0 = lane < n
     else:
-        if tuple(passign.shape) != (m_slots, n_pad) or passign.dtype != torch.int32:
-            raise ValueError(f"passign {tuple(passign.shape)} {passign.dtype}, want "
-                             f"({m_slots}, {n_pad}) int32")
         pix0 = passign[0].to(torch.int64)
         alive0 = pix0 < p_total
     fx0, fy0, seed0 = _pixel_init(pix0, number, width=width, y0=y0,
@@ -604,36 +741,25 @@ def pack_state(scene: DeviceScene, vp: ViewportArrays, *, backend, band_h,
     fstate[mk.R_FX] = fx0
     fstate[mk.R_FY] = fy0
     fstate[mk.R_THR : mk.R_THR + 3] = 1.0
-    home = backend in ("grid", "paged")
     if accum_init is not None:
-        if home:
-            raise ValueError(f"{backend} state has no accumulator rows: pass "
-                             "accum_init to home_accum")
-        flat = accum_init.reshape(p_total, 3).to(torch.float32)
-        pad = n * m_slots - p_total
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros((pad, 3))], dim=0)
-        acc_rows = flat.reshape(m_slots, n, 3).permute(0, 2, 1).reshape(3 * m_slots, n)
-        fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n] = acc_rows
+        _fill_accum(fstate, accum_init, p_total=p_total, m_slots=m_slots, n=n)
 
     ustate = torch.zeros((mk.U_ROWS, n_pad), dtype=torch.int32, device=dev)
     ustate[mk.U_SEED] = rngops.to_i32(seed)
     ustate[mk.U_SIDX] = 1
     ustate[mk.U_ALIVE] = (alive0 & (spp > 0)).to(torch.int32)
-    if home:
+    if backend in ("grid", "paged"):
         ustate[mk.U_LANE0] = lane.to(torch.int32)
-
-    s = np.zeros((1, 8), np.int64)  # scalar slots: megakernel.S_*
-    s[0, megakernel.S_SPP] = spp
-    s[0, megakernel.S_NUMBER] = np.uint32(number).astype(np.int32)
-    s[0, megakernel.S_Y0] = y0
-    s[0, megakernel.S_SEEDY0] = seed_y0
-    s[0, megakernel.S_OFFX] = offset_x
-    s[0, megakernel.S_NCALLS] = 1 if n_calls is None else n_calls
-    s[0, megakernel.S_SPPLAST] = spp if spp_last is None else spp_last
-    scal = torch.from_numpy(s.astype(np.int32)).to(dev)
+    launches.count(pack_state_plain)
+    scal = torch.from_numpy(_scalars(spp=spp, number=number, y0=y0, seed_y0=seed_y0,
+                                     offset_x=offset_x, n_calls=n_calls,
+                                     spp_last=spp_last)).to(dev)
     geom = dict(m_slots=m_slots, n_lanes=n, p_total=p_total, width=width)
-    return fstate, ustate, scal, vpr, geom
+    out = (fstate, ustate, scal, vpr, geom)
+    return out + (_rebucket_key(fstate, ustate, scene.paged.gscal),) if first_key else out
+
+
+pack_state_plain.launches = 0
 
 
 def home_accum(accum_init, p_total, device) -> torch.Tensor:
@@ -679,7 +805,8 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
     if backend == "grid" and scene.grid is None:
         raise ValueError("grid backend requires a grid-able scene")
     dev = scene.table.device
-    with launches.span("band.setup", backend=backend, y0=y0) as setup:
+    with launches.span("band.setup", backend=backend, y0=y0,
+                       route=state_route(dev)) as setup:
         if passign is not None:
             passign = torch.as_tensor(passign, dtype=torch.int32, device=dev)
         fstate, ustate, scal, vpr, geom = pack_state(
@@ -839,13 +966,13 @@ def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
     if scene.paged is None:
         raise ValueError("paged backend requires a paged-grid-able scene")
     g = scene.paged
-    with launches.span("band.setup", backend="paged", y0=y0) as setup:
-        fstate, ustate, scal, vpr, geom = pack_state(
+    with launches.span("band.setup", backend="paged", y0=y0,
+                       route=state_route(scene.table.device)) as setup:
+        fstate, ustate, scal, vpr, geom, key = pack_state(
             scene, vp, backend="paged", band_h=band_h, width=width, y0=y0,
             seed_y0=seed_y0, offset_x=offset_x, spp=spp, number=number,
-            pixels_per_lane=pixels_per_lane)
+            pixels_per_lane=pixels_per_lane, first_key=True)
         acc = home_accum(accum_init, geom["p_total"], fstate.device)
-        key = _rebucket_key(fstate, ustate, g.gscal)
         setup.set(n_lanes=geom["n_lanes"], m_slots=geom["m_slots"])
     k = pagedkernel.scaled_k(geom["n_lanes"])
     common = dict(geom, max_depth=max_depth, skip_tmax=skip_tmax, rr=rr, k_steps=k,

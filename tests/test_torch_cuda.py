@@ -456,3 +456,78 @@ def test_paged_probe_variants(cuda, name):
                  call(pagedkernel.paged_megakernel_step_plain),
                  [("freeze",)] + [("freeze", c) for c in pagedkernel.SWITCHES
                                   if c.startswith("cut_")], f, u, acc, kw)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _pack_pair(ds, backend, w, h, **kw):
+    """The band's set-up by the kernel route and by the plain version from
+    the same scene on the card: every output (and the paged first key),
+    compared bit for bit; the kernel's count moves by one."""
+    vp = trace.viewport_arrays(reference_camera(), w, h + kw.get("y0", 0))
+    kw = dict(dict(backend=backend, band_h=h, width=w, y0=0, seed_y0=0, offset_x=0,
+                   spp=2, number=4100000001, first_key=backend == "paged"), **kw)
+    before = trace.pack_state.launches
+    out_k = trace.pack_state(ds, vp, **kw)
+    out_p = trace.pack_state_plain(ds, vp, **kw)
+    torch.cuda.synchronize()
+    assert trace.pack_state.launches == before + 1
+    assert out_k[4] == out_p[4]
+    for name, a, b in zip(("fstate", "ustate", "scal", "vpr", "geom", "key"), out_k, out_p):
+        if name != "geom":
+            bad = (_bits(a) != _bits(b)).reshape(a.shape[0], -1).any(dim=0)
+            assert not bool(bad.any()), f"{name}: {int(bad.sum())} lanes differ"
+    return out_k
+
+
+PACK_CASES = {
+    # name: (scene, backend, width, height, pack_state keywords)
+    "grid_m1": ("book", "grid", 128, 72, dict(pixels_per_lane=1)),
+    "grid_m2": ("book", "grid", 1920, 1080, dict(pixels_per_lane=2)),
+    "grid_m16": ("book", "grid", 256, 144, dict(pixels_per_lane=16)),
+    "grid_m1_passign": ("book", "grid", 128, 72, dict(pixels_per_lane=1, passign=True)),
+    "grid_m2_passign": ("book", "grid", 1920, 1080, dict(pixels_per_lane=2, passign=True)),
+    # the 1-spp frame's call: 65 merged calls of 1 spp under its M = 16 table
+    "grid_m16_frame": ("book", "grid", 1920, 1080, dict(pixels_per_lane=16, passign=True,
+                                                        spp=1, n_calls=65, spp_last=1)),
+    "grid_band_offset_spp0": ("book", "grid", 200, 40, dict(y0=24, seed_y0=24, offset_x=56,
+                                                            spp=0, pixels_per_lane=2)),
+    "paged_m2": ("field2000", "paged", 128, 72, dict(pixels_per_lane=2)),
+    "paged_m31_field4k": ("field100k", "paged", 3840, 2160, dict(pixels_per_lane=31)),
+    "paged_band_offset": ("field2000", "paged", 200, 40, dict(y0=24, seed_y0=24,
+                                                              offset_x=56, pixels_per_lane=3)),
+    "mega_m2_accum": ("book", "mega", 128, 72, dict(pixels_per_lane=2, accum_init=True)),
+    "mega_m16_accum": ("three", "mega", 256, 144, dict(pixels_per_lane=16, accum_init=True)),
+}
+PACK_SCENES = {
+    "book": lambda: generate_random_scene(0.0),
+    "three": three_sphere_scene,
+    "field2000": lambda: random_sphere_field(2000, seed=1, extent=7.0),
+    "field100k": lambda: random_sphere_field(100_000),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(PACK_CASES))
+def test_pack_state_kernel_matches_plain(cuda, name):
+    """The band set-up kernel == ``pack_state_plain`` on every lane and row:
+    grid with and without a balanced table at M = 1, 2 and 16 (the 1-spp
+    frame's merged call and table included), paged at the field's 4K M = 31
+    and at M = 2 with the first sort key, mega with a carried accumulator,
+    and a band below the top with an x offset and no samples."""
+    from raytrace_tpu_torch.runtime.balance import build_passign
+
+    scene, backend, w, h, extra = PACK_CASES[name]
+    ds = trace.device_scene_from_numpy(trace.prepare_scene(PACK_SCENES[scene]()), cuda)
+    kw = dict(extra)
+    m = kw["pixels_per_lane"]
+    if kw.pop("passign", False):
+        cost = torch.rand(w * h, generator=torch.Generator().manual_seed(m)).numpy()
+        kw["passign"] = torch.from_numpy(build_passign(cost, m, trace.LANE_PAD)).to(cuda)
+    if kw.pop("accum_init", False):
+        kw["accum_init"] = torch.rand((h, w, 3), device=cuda)
+    f, u, *_ = _pack_pair(ds, backend, w, h, **kw)
+    n_alive = int(u[megakernel.U_ALIVE].sum())  # the row of every layout
+    assert n_alive == (0 if kw.get("spp", 2) == 0 else -(-w * h // m))

@@ -127,14 +127,15 @@ def _events():
 
 def instrumented(renderer, mod, name):
     """Render once with each launch of ``mod.<name>`` timed by CUDA events,
-    and for the paged driver its first key, each sort and each gather (the
-    grid driver: each ``live_lanes`` and gather); returns (wall s,
-    per-launch ms, alive lanes going into each launch (None for the fused
-    intersect kernel), {"key"|"sort"|"live"|"gather": per-call ms})."""
+    and each band's set-up (``pack_state``, with the paged driver's first
+    key), and for the paged driver each sort and each gather (the grid
+    driver: each ``live_lanes`` and gather); returns (wall s, per-launch ms,
+    alive lanes going into each launch (None for the fused intersect
+    kernel), {"setup"|"sort"|"live"|"gather": per-call ms})."""
     from raytrace_tpu_torch.ops import trace
 
     orig = getattr(mod, name)
-    glue = {"key": "_rebucket_key", "sort": "live_order", "live": "live_lanes",
+    glue = {"setup": "pack_state", "sort": "live_order", "live": "live_lanes",
             "gather": "gather_lanes"}
     orig_glue = {k: getattr(trace, f) for k, f in glue.items()}
     launch_ev, alive, glue_ev = [], [], {k: [] for k in glue}
@@ -156,8 +157,10 @@ def instrumented(renderer, mod, name):
                   lambda args: alive.append(int((args[u_arg][mod.U_ALIVE] != 0).sum())))
     step.launches = orig.launches  # the wrapper counts through its module name
     setattr(mod, name, step)
+    wrapped = {k: timing(orig_glue[k], glue_ev[k]) for k in glue}
+    wrapped["setup"].launches = trace.pack_state.launches  # it counts through its name
     for k, f in glue.items():
-        setattr(trace, f, timing(orig_glue[k], glue_ev[k]))
+        setattr(trace, f, wrapped[k])
     try:
         _, sec = wall(renderer.render)
     finally:
@@ -165,6 +168,7 @@ def instrumented(renderer, mod, name):
         for k, f in glue.items():
             setattr(trace, f, orig_glue[k])
         orig.launches = step.launches
+        orig_glue["setup"].launches = wrapped["setup"].launches
     ms = [round(a.elapsed_time(b), 3) for a, b in launch_ev]
     glue_ms = {k: [round(a.elapsed_time(b), 3) for a, b in ev] for k, ev in glue_ev.items()}
     return sec, ms, alive, glue_ms
