@@ -10,7 +10,9 @@ and two threads can lose one of their counts.
 Spans: ``span(name, **attrs)`` records a span of host time where the work
 happens (the renderer's call, a band's set-up, one launch of the grid or
 paged driver, the scene's generation and tables), and ``section(name)``
-marks a part of one.  Both record only while torch's profiler runs; with it
+marks a part of one; ``log`` adds a span timed by its caller, and
+``current`` is the innermost span open on the thread, for a callee to set
+attributes on.  They record only while torch's profiler runs; with it
 off a span reads one flag and does nothing else.  With it on, a span
 appends a ``Record`` to an in-memory log (``records``) and both open a
 profiler range named ``rt.<name>``, which a trace shows nested under the
@@ -36,7 +38,7 @@ _LOCK = threading.Lock()
 MAX_RECORDS = 1 << 20
 _LOG = collections.deque(maxlen=MAX_RECORDS)
 _IDS = itertools.count(1)
-_OPEN = threading.local()  # .stack: ids of this thread's open spans
+_OPEN = threading.local()  # .stack: this thread's open spans' records
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 
@@ -124,8 +126,8 @@ class _Span:
             stack = _OPEN.stack = []
         with _LOCK:
             rec.id = next(_IDS)
-        rec.parent = stack[-1] if stack else None
-        stack.append(rec.id)
+        rec.parent = stack[-1].id if stack else None
+        stack.append(rec)
         rec.t0 = time.perf_counter()
         return rec
 
@@ -158,6 +160,30 @@ def section(name: str):
     if not recording():
         return _OFF
     return _Span(name, None, False)
+
+
+def current():
+    """The innermost span open on this thread while the profiler runs, so a
+    callee can set attributes on its caller's span; otherwise
+    ``NO_RECORD``."""
+    stack = getattr(_OPEN, "stack", None)
+    return stack[-1] if stack and recording() else NO_RECORD
+
+
+def log(name: str, t0: float, t1: float, **attrs) -> None:
+    """Log a span whose ends the caller took on ``time.perf_counter``
+    itself, under the innermost span open on this thread: for spans that
+    overlap on one thread, as the bands stepped in turns do.  It opens no
+    profiler range; nothing is logged while the profiler is off."""
+    if not recording():
+        return
+    rec = Record(name, attrs)
+    rec.t0, rec.t1 = t0, t1
+    stack = getattr(_OPEN, "stack", None)
+    rec.parent = stack[-1].id if stack else None
+    with _LOCK:
+        rec.id = next(_IDS)
+        _LOG.append(rec)
 
 
 def records(t0=None, t1=None) -> list:

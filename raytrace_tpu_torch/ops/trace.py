@@ -833,7 +833,7 @@ def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
                 break
             n_first = n_first or n_live  # the band's first launch's
             with launches.span("grid.launch", index=index, n_live=n_live,
-                               n_first=n_first, k=k) as rec:
+                               n_first=n_first, k=k, device=dev.index) as rec:
                 rec.stamp("t_counted")
                 if n_live < ustate.shape[1]:
                     with launches.section("grid.compact"):

@@ -72,7 +72,15 @@ def measure_cost_map(render_band_kwargs: dict, spp: int) -> np.ndarray:
     production band render's (same backend, M and rr) minus spp, ablate and
     the accumulator, so the costs are measured under the production
     operating point."""
-    from ..ops.trace import render_band
+    from ..ops.trace import run_steps
+
+    return run_steps(cost_map_steps(render_band_kwargs, spp))
+
+
+def cost_map_steps(render_band_kwargs: dict, spp: int):
+    """``measure_cost_map`` as a generator of steps (``render_band_steps``),
+    so that several bands' probes run at once (``parallel/sharding.py``)."""
+    from ..ops.trace import render_band_steps
 
     kw = dict(render_band_kwargs)
     kw.pop("accum_init", None)
@@ -81,7 +89,8 @@ def measure_cost_map(render_band_kwargs: dict, spp: int) -> np.ndarray:
     kw.pop("passign", None)
     kw["spp"] = int(spp)
     kw["ablate"] = ("iterstats",)
-    return render_band(**kw)[:, :, 0].cpu().numpy()
+    cost = yield from render_band_steps(kw.pop("scene"), kw.pop("vp"), **kw)
+    return cost[:, :, 0].cpu().numpy()
 
 
 def balance_stats(cost: np.ndarray, table: Optional[np.ndarray],
