@@ -24,13 +24,12 @@ imports jax.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 
 from ..ops import launches
-from .mt19937 import MT19937, uniform_float
+from .mt19937 import MT19937, canonical_float, uniform_float
 
 # Material codes — matches MaterialType, reference src/scene.h:5-9
 DIFFUSE = 0
@@ -63,32 +62,39 @@ class SceneArrays(NamedTuple):
     n_spheres: np.ndarray  # [] i32 — sphereAmount, scene.h:28
 
 
-def get_random_color(engine: MT19937) -> np.ndarray:
-    """HSV(random h, s=0.75, v=0.45) -> RGB, scene.h:47-77. One engine draw."""
-    h = np.float32(math.floor(uniform_float(engine, 0.0, 360.0)))
-    s = np.float32(0.75)
-    v = np.float32(0.45)
-    c = s * v
+# getRandomColor's HSV (scene.h:47-77): s = 0.75, v = 0.45, in float32
+_HSV_C = np.float32(0.75) * np.float32(0.45)
+_HSV_M = np.float32(0.45) - _HSV_C
+
+# the material draw's thresholds (scene.h:129-149) rounded to float32: numpy
+# compares a float32 draw with the literal 0.7 in float32, as the JAX
+# package's scene does
+_P_DIFFUSE = float(np.float32(0.7))
+_P_METAL = float(np.float32(0.85))
+
+# engine words a small sphere draws, by material: z, x and the material
+# draw, then a diffuse sphere's hue or a metal sphere's b, g, r
+_WORDS = {DIFFUSE: 4, METAL: 6, REFRACTIVE: 3}
+
+_GRID_SPHERES = 22 * 22
+
+# getRandomColor's six hue sectors of 60 degrees: each picks r, g, b from
+# (c, x, 0) (scene.h:56-73)
+_SECTOR_RGB = np.array([[0, 1, 2], [1, 0, 2], [2, 0, 1], [2, 1, 0], [1, 2, 0], [0, 2, 1]])
+
+
+def _random_colors(hue: np.ndarray) -> np.ndarray:
+    """getRandomColor (scene.h:47-77) of each hue draw (``uniform_float`` of
+    [0, 360)): h = floor(hue), HSV(h, 0.75, 0.45) -> RGB rows, float32."""
+    h = np.floor(hue)
+    c = _HSV_C
     # whole chain in f32 like the reference (scene.h:52) — a float64
     # intermediate could double-round 1 ulp off
-    x = c * (
-        np.float32(1.0)
-        - np.abs(np.fmod(h / np.float32(60.0), np.float32(2.0)) - np.float32(1.0))
-    )
-    m = v - c
-    if 0 <= h < 60:
-        r, g, b = c, x, np.float32(0)
-    elif h < 120:
-        r, g, b = x, c, np.float32(0)
-    elif h < 180:
-        r, g, b = np.float32(0), c, x
-    elif h < 240:
-        r, g, b = np.float32(0), x, c
-    elif h < 300:
-        r, g, b = x, np.float32(0), c
-    else:
-        r, g, b = c, np.float32(0), x
-    return np.array([r + m, g + m, b + m], dtype=np.float32)
+    x = c * (np.float32(1.0) - np.abs(np.fmod(h / np.float32(60.0), np.float32(2.0))
+                                      - np.float32(1.0)))
+    cx0 = np.stack([np.full_like(h, c), x, np.zeros_like(h)], axis=1)
+    sector = _SECTOR_RGB[(h // np.float32(60.0)).astype(np.intp)]
+    return np.take_along_axis(cx0, sector, axis=1) + _HSV_M
 
 
 def generate_random_scene(t: float = 0.0) -> SceneArrays:
@@ -97,12 +103,13 @@ def generate_random_scene(t: float = 0.0) -> SceneArrays:
     ``t`` is the animation time in seconds (reference: wall clock, scene.h:82-83).
     """
     with launches.span("scene.generate") as rec:
-        scene = _book_scene(t)
-        rec.set(n_spheres=int(scene.n_spheres))
+        scene, draws = _book_scene(t)
+        rec.set(n_spheres=int(scene.n_spheres), draws=draws)
     return scene
 
 
-def _book_scene(t: float) -> SceneArrays:
+def _book_scene(t: float) -> tuple[SceneArrays, int]:
+    """The book scene at time ``t``, and the engine words its layout drew."""
     S = MAX_SPHERE_AMOUNT
     centers = np.zeros((S, 3), np.float32)
     radii = np.zeros((S,), np.float32)
@@ -139,39 +146,48 @@ def _book_scene(t: float) -> SceneArrays:
     color0[3] = (1.0, 1.0, 1.0)
     attr[3] = 1.5
 
-    # 22x22 grid of small spheres — scene.h:118-153
+    # 22x22 grid of small spheres — scene.h:118-153.  One block of engine
+    # words covers the most a layout can draw (six a sphere); the words past
+    # the layout's end are never read.
     engine = MT19937()  # std::mt19937 engine{} — default seed, scene.h:120
-    idx = 4
-    for a in range(-11, 11):
-        for b in range(-11, 11):
-            # The center draws sit inside glm::vec4's ARGUMENT LIST
-            # (scene.h:124-125) and C++ argument evaluation order is
-            # unspecified; g++ (which builds the reference on Linux)
-            # evaluates right-to-left at every -O level, so the FIRST engine
-            # draw lands in the z component and the second in x.  Pinned
-            # byte-for-byte against a compiled probe in
-            # tests/test_scene_layout_probe.py.
-            cz = np.float32(b) + np.float32(0.9) * uniform_float(engine)
-            cx = np.float32(a) + np.float32(0.9) * uniform_float(engine)
-            centers[idx] = (cx, 0.2, cz)
-            radii[idx] = 0.2
-            p = uniform_float(engine)
-            if p < 0.7:
-                material[idx] = DIFFUSE
-                color0[idx] = get_random_color(engine)
-            elif p < 0.85:
-                material[idx] = METAL
-                # same right-to-left argument order (scene.h:135-136):
-                # draws land in b, g, r
-                cb_ = uniform_float(engine, 0.5, 1.0)
-                cg_ = uniform_float(engine, 0.5, 1.0)
-                cr_ = uniform_float(engine, 0.5, 1.0)
-                color0[idx] = (cr_, cg_, cb_)
-            else:
-                material[idx] = REFRACTIVE
-                color0[idx] = (1.0, 1.0, 1.0)
-                attr[idx] = 1.5
-            idx += 1
+    u = canonical_float(engine.draw(6 * _GRID_SPHERES))
+    u01 = uniform_float(u)
+    # A sphere's material draw decides how many words it takes, so its
+    # first word is found by walking the spheres in order.
+    p = u01.tolist()
+    first, mats, k = [], [], 0
+    for _ in range(_GRID_SPHERES):
+        pk = p[k + 2]
+        m = DIFFUSE if pk < _P_DIFFUSE else METAL if pk < _P_METAL else REFRACTIVE
+        first.append(k)
+        mats.append(m)
+        k += _WORDS[m]
+    draws = k
+    k = np.array(first)
+    mat = np.array(mats, np.int32)
+    i = np.arange(_GRID_SPHERES)
+    a = (i // 22 - 11).astype(np.float32)
+    b = (i % 22 - 11).astype(np.float32)
+    grid = slice(4, 4 + _GRID_SPHERES)
+    # The center draws sit inside glm::vec4's ARGUMENT LIST (scene.h:124-125)
+    # and C++ argument evaluation order is unspecified; g++ (which builds the
+    # reference on Linux) evaluates right-to-left at every -O level, so the
+    # FIRST engine draw lands in the z component and the second in x.  Pinned
+    # byte-for-byte against a compiled probe in
+    # tests/test_scene_layout_probe.py.
+    centers[grid, 0] = a + np.float32(0.9) * u01[k + 1]
+    centers[grid, 1] = 0.2
+    centers[grid, 2] = b + np.float32(0.9) * u01[k]
+    radii[grid] = 0.2
+    material[grid] = mat
+    col = np.ones((_GRID_SPHERES, 3), np.float32)  # glass: (1, 1, 1)
+    diffuse, metal = mat == DIFFUSE, mat == METAL
+    col[diffuse] = _random_colors(uniform_float(u[k[diffuse] + 3], 0.0, 360.0))
+    # same right-to-left argument order (scene.h:135-136): draws land in
+    # b, g, r
+    col[metal] = uniform_float(u[k[metal][:, None] + [5, 4, 3]], 0.5, 1.0)
+    color0[grid] = col
+    attr[grid][mat == REFRACTIVE] = 1.5
 
     return SceneArrays(
         centers=centers,
@@ -181,8 +197,8 @@ def _book_scene(t: float) -> SceneArrays:
         color0=color0,
         color1=color1,
         attr=attr,
-        n_spheres=np.int32(idx),
-    )
+        n_spheres=np.int32(4 + _GRID_SPHERES),
+    ), draws
 
 
 def random_sphere_field(count: int, seed: int = 0, extent: float = 50.0,
@@ -200,15 +216,17 @@ def random_sphere_field(count: int, seed: int = 0, extent: float = 50.0,
     the interval instead of the book's fixed y=0.2 — such scenes exercise
     the grid backend's general 5-value layout (models/grid.py has_cy).
     """
-    with launches.span("scene.generate", n_spheres=count + 4):
-        return _sphere_field(count, seed, extent, t, y_range)
+    with launches.span("scene.generate", n_spheres=count + 4) as rec:
+        scene, draws = _sphere_field(count, seed, extent, t, y_range)
+        rec.set(draws=draws)
+    return scene
 
 
-def _sphere_field(count, seed, extent, t, y_range) -> SceneArrays:
+def _sphere_field(count, seed, extent, t, y_range) -> tuple[SceneArrays, int]:
     n = count + 4
     s = max(128, -(-n // 128) * 128)
     rng = np.random.default_rng(seed)
-    base = _book_scene(t)
+    base, draws = _book_scene(t)
     sc = SceneArrays(
         centers=np.zeros((s, 3), np.float32),
         radii=np.zeros((s,), np.float32),
@@ -237,7 +255,7 @@ def _sphere_field(count, seed, extent, t, y_range) -> SceneArrays:
     cols[mat == REFRACTIVE] = 1.0
     sc.color0[4 : 4 + k] = cols
     sc.attr[4 : 4 + k] = np.where(mat == REFRACTIVE, 1.5, 0.0)
-    return sc
+    return sc, draws
 
 
 def three_sphere_scene() -> SceneArrays:

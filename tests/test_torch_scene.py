@@ -4,7 +4,11 @@ The port copies the JAX package's numpy modules (it must never import
 ``raytrace_tpu``); these tests pin the copies byte for byte against the
 reference on the book scene at several animation times, the three-sphere
 scene and the 2000-sphere stretch field, and the grid tables at pitch 1 and 2.
+Every call draws the book's layout anew: its ``scene.generate`` span says
+how many engine words it drew.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -17,8 +21,10 @@ from raytrace_tpu.ops import pallas_intersect as jpi
 from raytrace_tpu.ops import trace as jtrace
 from raytrace_tpu_torch.models import camera as tcamera
 from raytrace_tpu_torch.models import grid as tgrid
+from raytrace_tpu_torch.models import mt19937 as tmt
 from raytrace_tpu_torch.models import scene as tscene
 from raytrace_tpu_torch.ops import intersect as tintersect
+from raytrace_tpu_torch.ops import launches
 from raytrace_tpu_torch.ops import trace as ttrace
 
 torch.set_num_threads(1)
@@ -27,6 +33,12 @@ SCENES = {
     "book_t0": lambda m: m.generate_random_scene(0.0),
     "book_t0.9": lambda m: m.generate_random_scene(0.9),
     "book_t2.7": lambda m: m.generate_random_scene(2.7),
+    # the frame loop's times: t0 in [0, 600) plus i / 60, and past either end
+    "book_t-600": lambda m: m.generate_random_scene(-600.0),
+    "book_t599.983": lambda m: m.generate_random_scene(599.983),
+    "book_t0.0166": lambda m: m.generate_random_scene(1 / 60),
+    "book_t317.41": lambda m: m.generate_random_scene(317.41 + 7 / 60),
+    "book_t1e4": lambda m: m.generate_random_scene(12345.678),
     "three_sphere": lambda m: m.three_sphere_scene(),
     "field2000": lambda m: m.random_sphere_field(2000, seed=1, extent=7.0),
     "tall60": lambda m: m.random_sphere_field(60, seed=3, extent=8.0, y_range=(0.2, 2.5)),
@@ -46,6 +58,43 @@ def test_scene_arrays_byte_equal(name):
     assert tscene.SceneArrays._fields == jscene.SceneArrays._fields
     for field in jscene.SceneArrays._fields:
         _byte_equal(getattr(port, field), getattr(ref, field))
+
+
+# the book layout's engine words: 4 a diffuse sphere, 6 a metal, 3 a glass
+BOOK_DRAWS = 2017
+
+
+@pytest.mark.parametrize("name", ["book_t0", "field2000"])
+def test_every_call_draws_the_whole_stream(name, monkeypatch):
+    """No layout is kept between calls: each of two successive calls seeds
+    an engine, draws its block, and records the words its layout drew."""
+    entered = []
+    draw = tmt.MT19937.draw
+
+    def counted(self, n):
+        entered.append(n)
+        return draw(self, n)
+
+    monkeypatch.setattr(tmt.MT19937, "draw", counted)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        first = SCENES[name](tscene)
+        second = SCENES[name](tscene)
+    recs = [r for r in launches.records(t0) if r.name == "scene.generate"]
+    assert [r.attrs["draws"] for r in recs] == [BOOK_DRAWS, BOOK_DRAWS]
+    assert [r.attrs["n_spheres"] for r in recs] == [int(first.n_spheres)] * 2
+    assert len(entered) == 2 and all(n >= BOOK_DRAWS for n in entered)
+    for field in tscene.SceneArrays._fields:
+        _byte_equal(getattr(first, field), getattr(second, field))
+
+
+def test_book_layout_material_counts():
+    """The draws follow from the materials: 4, 6 and 3 words a sphere."""
+    sc = tscene.generate_random_scene(0.0)
+    mat = sc.material[4:int(sc.n_spheres)]
+    counts = [int((mat == m).sum()) for m in (tscene.DIFFUSE, tscene.METAL, tscene.REFRACTIVE)]
+    assert sum(counts) == 484
+    assert 4 * counts[0] + 6 * counts[1] + 3 * counts[2] == BOOK_DRAWS
 
 
 @pytest.mark.parametrize("aspect", [24 / 14, 16 / 9, 1.0])
