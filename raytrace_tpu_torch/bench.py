@@ -114,8 +114,7 @@ def merged_renderer(r, cfg):
         return r
     r2 = Renderer(dataclasses.replace(cfg, calls_per_exec=group), scene=r.scene,
                   device=r.device)
-    r2._passign = r._passign
-    r2.balance_stats = r.balance_stats
+    r2.passign, r2.balance_stats = r.passign, r.balance_stats
     return r2
 
 
@@ -130,13 +129,12 @@ def grid_launch_tally(r, spp: int) -> tuple:
     from .ops import trace
     from .scripts.bench_gather import time_ms
 
-    band_y0, band_h = next(r._bands())
-    kw = r._band_kwargs(band_y0, band_h)
-    passign = None if r._passign is None else r._passign.get(band_y0)
+    kw = r.chunks(r.bands[0])[0]
+    passign = None if r.passign is None else r.passign.get(kw["y0"])
     f, u, scal, vpr, geom = trace.pack_state(
-        r.device_scene, kw["vp"], backend="grid", band_h=band_h, width=kw["width"],
-        y0=band_y0, seed_y0=band_y0, offset_x=0, spp=spp, number=0,
-        pixels_per_lane=r.pixels_per_lane, passign=passign)
+        kw["scene"], kw["vp"], backend="grid", band_h=kw["band_h"], width=kw["width"],
+        y0=kw["y0"], seed_y0=kw["seed_y0"], offset_x=0, spp=spp, number=0,
+        pixels_per_lane=kw["pixels_per_lane"], passign=passign)
     step_kw = dict(geom, max_depth=kw["max_depth"], skip_tmax=kw["skip_tmax"], rr=kw["rr"],
                    passign=passign)
     acc = trace.home_accum(None, geom["p_total"], r.device)

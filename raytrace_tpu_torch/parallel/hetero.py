@@ -4,7 +4,9 @@ Port of ``raytrace_tpu/parallel/hetero.py``, the analogue of the reference's
 multi-GPU architecture (ray_trace.cpp:42-920 and workload_tuner.hpp): each
 device renders its own row band independently, and the workload tuner
 (``runtime/tuner.py``) re-splits the rows between measurement windows from
-each device's busy time.  A re-split only changes band heights.
+each device's busy time.  A re-split only changes band heights.  The
+scene binding and each band's chunks are ``runtime/renderer.BandPlan``'s,
+as for the port's other renderers.
 
 Dispatch differs from JAX's: the JAX package issues every band and then
 fetches them on threads; the port's drivers read their live count on the
@@ -24,19 +26,20 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..config import RenderConfig
-from ..models.scene import SceneArrays, generate_random_scene
+from ..models.scene import SceneArrays
 from ..ops import image as imageops
 from ..ops.trace import tmax_never_binds, viewport_arrays
-from ..runtime.renderer import config_camera, render_device, resolve_backend
+from ..runtime.renderer import Band, BandPlan, config_camera, render_device
 from ..runtime.tuner import make_tuner
 from .devices import pick_devices, run_in_turns
-from .sharding import rows_steps, upload_per_device
 
 
-class HeteroRenderer:
+class HeteroRenderer(BandPlan):
     """Per-device band dispatch with dynamic row rebalancing.  ``devices``:
     a list of torch devices (repeats allowed); None picks ``config.chips``
-    devices of ``device``'s type."""
+    devices of ``device``'s type.  ``set_scene`` keeps the band split and
+    the tuner state, as the reference keeps its tuner history while it
+    animates."""
 
     def __init__(
         self,
@@ -47,33 +50,15 @@ class HeteroRenderer:
         tuner_seed: int = 0x9E3779B97F4A7C15,
         device="cuda",
     ):
-        self.config = config
-        self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
         if devices is None:
             devices = pick_devices(config.chips, render_device(device).type)
-        self.devices = [render_device(d) for d in devices]
-        self.n = len(self.devices)
-        if self.n == 0:
-            raise ValueError("no devices to render on")
+        super().__init__(config, scene, devices)
         self.reference_banding = reference_banding
         h = config.height
         # initial split: equal rows, remainder to device 0 (ray_trace.cpp:74-81)
         base = h // self.n
         self.rows: List[int] = [base + (h - base * self.n if i == 0 else 0) for i in range(self.n)]
         self.tuner = make_tuner(h, self.n, tuner_seed)
-        self.set_scene(self.scene)
-        self.set_camera(config)
-
-    def set_scene(self, scene: SceneArrays) -> None:
-        """Swap the scene (animation: a new ``generate_random_scene(t)`` per
-        frame, ray_trace.cpp:665): its tables go once to each distinct
-        device.  Band split and tuner state are kept, as the reference keeps
-        its tuner history while it animates."""
-        self.scene = scene
-        self.device_scenes = upload_per_device(scene, self.devices)
-        self.backend = resolve_backend(self.config.backend,
-                                       self.device_scenes[self.devices[0]])
-        self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
 
     def set_camera(self, config: RenderConfig) -> None:
         """Adopt a config with a new camera (the viewer's steering input)."""
@@ -98,12 +83,9 @@ class HeteroRenderer:
 
         def band(j):
             i = busy[j]
-            dev = self.devices[i]
-            acc = yield from rows_steps(
-                self.device_scenes[dev], self.vp, self.config, backend=self.backend,
-                skip_tmax=self.skip_tmax, device=dev, y0=offs[i], rows=self.rows[i],
-                seed_y0=0 if self.reference_banding else offs[i], spp=spp,
-                number=number)
+            seed_y0 = 0 if self.reference_banding else offs[i]
+            acc = yield from self.band_steps(Band(self.devices[i], offs[i], self.rows[i],
+                                                  seed_y0), spp, number)
             return acc.cpu().numpy()
 
         bands, done_s = run_in_turns([self.devices[i] for i in busy], band)

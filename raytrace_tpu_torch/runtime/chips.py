@@ -28,7 +28,6 @@ from typing import Optional
 class ChipProfile:
     kind_substr: str  # matched against torch.cuda.get_device_name(), lower case
     lanes_per_thread: int  # grid band lanes per thread slot of the card
-    m_max: int  # pixels-per-lane cap
     samples_per_call: int  # progressive chunk of a long render
     calls_per_exec: int  # in-kernel call-merge group (grid backend)
     block: int  # grid kernel threads per block
@@ -38,7 +37,7 @@ class ChipProfile:
 
 
 PROFILES = (
-    ChipProfile("h100", 4, 64, 2500, 4, 128, 40, 2,
+    ChipProfile("h100", 4, 2500, 4, 128, 40, 2,
                 "measured on NVIDIA H100 80GB HBM3, 700.00 W: M = 2 at 1080p "
                 "(4 lanes per thread slot), K = 40, J = 2 from the K x J x M "
                 "sweep; 2500 spp per call, 4 calls per dispatch from the "

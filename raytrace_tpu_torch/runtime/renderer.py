@@ -1,13 +1,21 @@
-"""Single-device render orchestrator.
+"""The row-band plan and the single-device renderer.
 
 Port of ``raytrace_tpu/runtime/renderer.py``: backend resolution, the
-pixels-per-lane pick, row-band chunking (one ``render_band`` call per band),
-progressive multi-call accumulation (on the grid backend merged in the
-kernel, ``calls_per_exec`` calls per dispatch), the balanced pixel->lane
-tables (``enable_balance``), checkpoint and resume, the frame-loop
-benchmark and the u8 display image.
+pixels-per-lane pick, row-band chunking, progressive multi-call
+accumulation (on the grid backend merged in the kernel, ``calls_per_exec``
+calls per dispatch), the balanced pixel->lane tables (``enable_balance``),
+checkpoint and resume, the frame-loop benchmark and the u8 display image.
 
-Chunking is seed-transparent: bands seed from global pixel coordinates, so
+``BandPlan`` is what the port's three renderers render rows through: this
+module's ``Renderer`` (one band of every row, on one device) and the band
+renderers of ``parallel/sharding.py`` and ``parallel/hetero.py``.  It binds
+a scene to the devices (``set_scene``), picks a band's lane layout once per
+device, backend and band height (``layout``), steps a band over its chunks
+(``band_steps``) and probes a band for its balanced tables
+(``balance_steps``); ``progressive_render`` runs a renderer's progressive
+calls through its ``render_call``.
+
+Chunking is seed-transparent: chunks seed from global pixel coordinates, so
 any ``chunk_rows`` gives bit-identical output to an unchunked render.
 """
 
@@ -15,7 +23,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,11 +31,12 @@ import torch
 from ..config import RenderConfig
 from ..models.camera import Camera
 from ..models.scene import SceneArrays, generate_random_scene
+from ..ops import gridkernel, launches, pagedkernel, trace
 from ..ops import image as imageops
-from ..ops import launches
 from ..ops.trace import (LANE_PAD, DeviceScene, device_scene_from_numpy,
-                         prepare_scene, render_band, tmax_never_binds,
+                         prepare_scene, run_steps, tmax_never_binds,
                          viewport_arrays)
+from . import balance as bal
 
 # lanes per band: the spec paths materialise [lanes, spheres] (and
 # bruteforce [lanes, spheres, 3]) intersection temporaries; the kernel steps
@@ -111,50 +120,215 @@ def band_layout(config: RenderConfig, device: torch.device, backend: str,
     return m, max(1, min(rows, (target * m) // max(w, 1)))
 
 
-class Renderer:
-    """Renders full frames on one device (one ``render_band`` per band).
-    ``config.chips`` is not read: like the JAX ``Renderer``, this one renders
-    on its one device (``parallel/`` splits rows over several)."""
+class Band(NamedTuple):
+    """A row band: the device it renders on, its first image row, its rows
+    and the image row its seeds start from."""
 
-    def __init__(self, config: RenderConfig, scene: Optional[SceneArrays] = None,
-                 device="cuda"):
+    device: torch.device
+    y0: int
+    rows: int
+    seed_y0: int
+
+
+def upload_per_device(scene: SceneArrays, devices: Sequence[torch.device]) -> dict:
+    """{device: DeviceScene}: the scene's tables once on each distinct
+    device (bands on one device share them)."""
+    host = prepare_scene(scene)
+    return {d: device_scene_from_numpy(host, d) for d in dict.fromkeys(devices)}
+
+
+class BandPlan:
+    """The rows of a render as bands over ``devices`` (torch devices; a
+    device may repeat): the scene bound to them, each band's lane layout, a
+    band stepped over its chunks, and the balanced pixel->lane tables
+    (``runtime/balance.py``), one per chunk, keyed by the chunk's first
+    image row (chunks never overlap, so one dict serves every band).  The
+    image is bit-identical for any chunking and any tables."""
+
+    chunk_rows: Optional[int] = None  # rows per chunk; None: band_layout's
+    passign: Optional[dict] = None  # {chunk's first row: table on its device}
+    balance_stats: Optional[dict] = None  # {chunk's first row: probe stats}
+
+    def __init__(self, config: RenderConfig, scene: Optional[SceneArrays], devices):
         if config.accum_dtype not in ("float32", "float64"):
             raise ValueError(f"unsupported accum_dtype: {config.accum_dtype!r}")
         self.config = config
-        self.device = render_device(device)
-        self.scene = scene if scene is not None else generate_random_scene(config.scene_time)
-        self.set_scene(self.scene)
-        self.pixels_per_lane, self.chunk_rows = band_layout(
-            config, self.device, self.backend, config.height)
+        self.devices = [render_device(d) for d in devices]
+        self.n = len(self.devices)
+        if self.n == 0:
+            raise ValueError("no devices to render on")
+        self._layouts = {}
         self.vp = viewport_arrays(config_camera(config), config.width, config.height)
-        # balanced pixel->lane tables per band (runtime/balance.py), built on
-        # demand when config.balance_spp > 0, or by enable_balance
-        self._passign = None
-        self.balance_stats = None
+        self.set_scene(scene if scene is not None else generate_random_scene(config.scene_time))
+
+    def set_scene(self, scene: SceneArrays) -> None:
+        """Render ``scene`` from now on (animation: a new
+        ``generate_random_scene(t)`` per frame, ray_trace.cpp:665): its
+        tables go once to each distinct device and the backend is resolved
+        again.  Bands, balanced tables and tuner state are kept."""
+        self.scene = scene
+        self.device_scenes = upload_per_device(scene, self.devices)
+        self.backend = resolve_backend(self.config.backend, self.device_scenes[self.devices[0]])
+        self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
+
+    def layout(self, band: Band):
+        """(pixels per lane, rows per chunk) of ``band``: ``band_layout``'s,
+        computed once per device, backend and band height; the rows per
+        chunk ``chunk_rows`` where that is set."""
+        key = (band.device, self.backend, band.rows)
+        if key not in self._layouts:
+            self._layouts[key] = band_layout(self.config, band.device, self.backend, band.rows)
+        m, rows = self._layouts[key]
+        return m, self.chunk_rows or rows
+
+    def chunks(self, band: Band) -> list:
+        """The ``render_band_steps`` keywords the plan fixes for each chunk
+        of ``band`` (at most ``layout``'s rows each, at the band's M)."""
+        cfg = self.config
+        m, rows = self.layout(band)
+        return [dict(scene=self.device_scenes[band.device], vp=self.vp,
+                     band_h=min(rows, band.rows - c0), width=cfg.width, y0=band.y0 + c0,
+                     seed_y0=band.seed_y0 + c0, offset_x=0, max_depth=cfg.max_depth,
+                     backend=self.backend, pixels_per_lane=m, skip_tmax=self.skip_tmax,
+                     rr=cfg.rr)
+                for c0 in range(0, band.rows, rows)]
+
+    def band_steps(self, band: Band, spp: int, number: int = 0, accum=None, n_calls=None,
+                   spp_last=None, return_iters: bool = False):
+        """``band``'s rows as a generator of steps (``render_band_steps``)
+        over its chunks, each under its balanced table and its kernel
+        module's ``ABLATE`` (the section-cost probes' switches, read at call
+        time, as ``scripts/grid_ablate.py`` sets them).  ``accum``: the
+        image's running sum (this band's rows are read from it, on any
+        device).  ``n_calls``/``spp_last``: the grid backend's merged calls.
+        Returns [rows, W, 3] f32 on the band's device; with ``return_iters``
+        (sum, tile_iters, lane_slots) (``render_band_steps``)."""
+        ablate = tuple(sorted({"grid": gridkernel.ABLATE,
+                               "paged": pagedkernel.ABLATE}.get(self.backend, ())))
+        out, tile_iters, lane_slots = [], 0, 0
+        for kw in self.chunks(band):
+            y0, h = kw["y0"], kw["band_h"]
+            acc = yield from trace.render_band_steps(
+                **kw, spp=spp, number=number, n_calls=n_calls, spp_last=spp_last,
+                accum_init=None if accum is None else accum[y0 : y0 + h].to(band.device),
+                passign=None if self.passign is None else self.passign.get(y0),
+                ablate=ablate, return_iters=return_iters)
+            if return_iters:
+                acc, (ti, ls) = acc
+                tile_iters, lane_slots = tile_iters + ti, lane_slots + ls
+            out.append(acc)
+        acc = out[0] if len(out) == 1 else torch.cat(out, dim=0)
+        return (acc, tile_iters, lane_slots) if return_iters else acc
+
+    def probe_spp(self, probe_spp: Optional[int] = None) -> int:
+        """The balance probe's spp; raises off the grid backend."""
+        if self.backend != "grid":
+            raise ValueError("balanced assignment is a grid-backend feature")
+        return probe_spp or self.config.balance_spp or 32
+
+    def balance_steps(self, band: Band, spp: int):
+        """Measure the per-pixel costs of ``band``'s chunks with the grid
+        kernel's iterstats probe at the production operating point and deal
+        each chunk's pixels to lanes by them (``build_passign``), as a
+        generator of steps.  Returns ({chunk's first row: table on the
+        band's device}, {chunk's first row: {max_over_mean, lanes,
+        issued_per_sample}})."""
+        tables, stats = {}, {}
+        for kw in self.chunks(band):
+            cost = yield from bal.cost_map_steps(dict(kw, number=0), spp)
+            m, y0 = kw["pixels_per_lane"], kw["y0"]
+            tab = bal.build_passign(cost, m, LANE_PAD)
+            tables[y0] = torch.from_numpy(tab).to(band.device)
+            stats[y0] = dict(bal.balance_stats(cost, tab, m),
+                             issued_per_sample=float(np.asarray(cost, np.float64).mean() / spp))
+        return tables, stats
+
+    def adopt_tables(self, probes) -> dict:
+        """Render under the tables of ``probes`` (``balance_steps``' returns)
+        from now on; returns their stats (``balance_stats``)."""
+        self.passign = {y0: t for tables, _ in probes for y0, t in tables.items()}
+        self.balance_stats = {y0: s for _, stats in probes for y0, s in stats.items()}
+        return self.balance_stats
+
+    def tables_on_demand(self) -> None:
+        """Build the balanced tables (``enable_balance``) before the first
+        call where ``config.balance_spp`` asks for them on the grid
+        backend."""
+        if self.config.balance_spp and self.backend == "grid" and self.passign is None:
+            self.enable_balance()
+
+
+def progressive_render(r, samples: Optional[int] = None, on_chunk=None):
+    """Full render through ``r.render_call``: ``samples`` total spp (None:
+    the config's), split into progressive calls of
+    ``config.samples_per_call``.  On the grid backend up to
+    ``calls_per_exec`` calls are merged into one dispatch; the output is
+    bit-identical for any grouping, and ``on_chunk(accum, done)`` fires
+    once per dispatch.  Returns (accum_sum [H, W, 3], total).
+
+    ``accum_dtype="float64"`` reproduces the reference's dvec3
+    accumulation across calls (each call's f32 sum is added into an f64
+    accumulator, one call per dispatch); in-call sums stay f32."""
+    cfg = r.config
+    total = cfg.samples if samples is None else samples
+    per_call = cfg.samples_per_call or total
+    f64 = cfg.accum_dtype == "float64"
+    group_max = max(1, cfg.calls_per_exec) if r.backend == "grid" and not f64 else 1
+    accum, number, done = None, 0, 0
+    while done < total:
+        remaining = total - done
+        nc = min(group_max, -(-remaining // per_call))
+        spp_last = min(per_call, remaining - (nc - 1) * per_call)
+        if f64:
+            out = r.render_call(spp_last, number=number).to(torch.float64)
+            accum = out if accum is None else accum + out
+        elif nc > 1:
+            accum = r.render_call(per_call, number=number, accum=accum, n_calls=nc,
+                                  spp_last=spp_last)
+        else:
+            accum = r.render_call(spp_last, number=number, accum=accum)
+        done += (nc - 1) * per_call + spp_last
+        number += nc
+        if on_chunk is not None:
+            on_chunk(accum, done)
+    return accum, total
+
+
+def progressive_u8(r, samples: Optional[int] = None) -> np.ndarray:
+    """Render (``r.render``) and tonemap to the display image (u8 RGB, host
+    array)."""
+    accum, total = r.render(samples)
+    return imageops.accum_to_u8(accum, total).cpu().numpy()
+
+
+class Renderer(BandPlan):
+    """Renders full frames on one device: one band of every row, stepped
+    over its chunks.  ``config.chips`` is not read: like the JAX
+    ``Renderer``, this one renders on its one device (``parallel/`` splits
+    rows over several)."""
+
+    def __init__(self, config: RenderConfig, scene: Optional[SceneArrays] = None,
+                 device="cuda"):
+        super().__init__(config, scene, [device])
+        self.device = self.devices[0]
+        self.bands = [Band(self.device, 0, config.height, 0)]
+
+    @property
+    def device_scene(self) -> DeviceScene:
+        """The scene's tables on the device."""
+        return self.device_scenes[self.device]
+
+    @property
+    def pixels_per_lane(self) -> int:
+        """The band's pixels per lane (M)."""
+        return self.layout(self.bands[0])[0]
 
     def set_scene(self, scene: SceneArrays) -> None:
         """Render ``scene`` from now on: its tables go to the device and the
         backend is resolved again."""
         with launches.span("renderer.set_scene") as rec:
-            self.scene = scene
-            self.device_scene = device_scene_from_numpy(prepare_scene(scene), self.device)
-            self.backend = resolve_backend(self.config.backend, self.device_scene)
-            self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
+            super().set_scene(scene)
             rec.set(backend=self.backend)
-
-    def _bands(self):
-        h = self.config.height
-        for band_y0 in range(0, h, self.chunk_rows):
-            yield band_y0, min(self.chunk_rows, h - band_y0)
-
-    def _band_kwargs(self, band_y0, band_h):
-        cfg = self.config
-        return dict(scene=self.device_scene, vp=self.vp, band_h=band_h,
-                    width=cfg.width, y0=band_y0,
-                    seed_y0=band_y0,  # global coords: chunk-invariant
-                    offset_x=0, max_depth=cfg.max_depth, backend=self.backend,
-                    pixels_per_lane=self.pixels_per_lane,
-                    skip_tmax=self.skip_tmax, rr=cfg.rr)
 
     def render_call(self, spp: int, number: int = 0, accum=None, n_calls=None,
                     spp_last=None, return_iters: bool = False):
@@ -166,111 +340,25 @@ class Renderer:
         ``spp`` each, ``spp_last`` for the final one), bit-identical to the
         same calls issued separately.  ``return_iters``: return (accum,
         tile_iters, lane_slots), the launches' iterations summed over their
-        blocks of ``LANE_PAD`` lanes and over their lane slots.  The grid
-        and paged backends render under their kernel module's ``ABLATE``
-        (the section-cost probes' switches, read at call time, as
-        ``scripts/grid_ablate.py`` sets them)."""
-        from ..ops import gridkernel, pagedkernel
-
-        cfg = self.config
-        ablate = tuple(sorted({"grid": gridkernel.ABLATE,
-                               "paged": pagedkernel.ABLATE}.get(self.backend, ())))
-        if cfg.balance_spp and self.backend == "grid" and self._passign is None:
-            self.enable_balance()
+        blocks of ``LANE_PAD`` lanes and over their lane slots."""
+        self.tables_on_demand()
         if accum is not None:
             accum = torch.as_tensor(accum, device=self.device)
-        bands = []
-        tile_iters = lane_slots = 0
-        layout = list(self._bands())
-        with launches.span("renderer.call", spp=spp, n_calls=n_calls or 1, bands=len(layout)):
-            for band_y0, band_h in layout:
-                out = render_band(
-                    **self._band_kwargs(band_y0, band_h), spp=spp, number=number,
-                    accum_init=None if accum is None else accum[band_y0 : band_y0 + band_h],
-                    n_calls=n_calls, spp_last=spp_last,
-                    passign=None if self._passign is None else self._passign.get(band_y0),
-                    ablate=ablate, return_iters=return_iters)
-                if return_iters:
-                    out, (ti, ls) = out
-                    tile_iters += ti
-                    lane_slots += ls
-                bands.append(out)
-            acc = torch.cat(bands, dim=0)
-        return (acc, tile_iters, lane_slots) if return_iters else acc
+        band = self.bands[0]
+        with launches.span("renderer.call", spp=spp, n_calls=n_calls or 1,
+                           bands=len(self.chunks(band))):
+            return run_steps(self.band_steps(band, spp, number, accum, n_calls, spp_last,
+                                             return_iters))
 
     def enable_balance(self, probe_spp: Optional[int] = None) -> dict:
-        """Measure per-pixel costs with the grid kernel's iterstats probe and
-        build a balanced pixel->lane table per band (runtime/balance.py).
-        The image is bit-identical with or without the tables; only the
-        lanes' straggler tail moves.  Returns per-band {max_over_mean, lanes,
-        issued_per_sample} diagnostics."""
-        from . import balance as bal
+        """Build the balanced table of every chunk (``balance_steps``).  The
+        image is bit-identical with or without the tables; only the lanes'
+        straggler tail moves.  Returns the tables' stats."""
+        spp = self.probe_spp(probe_spp)
+        return self.adopt_tables([run_steps(self.balance_steps(self.bands[0], spp))])
 
-        if self.backend != "grid":
-            raise ValueError("balanced assignment is a grid-backend feature")
-        spp = probe_spp or self.config.balance_spp or 32
-        tables, stats = {}, {}
-        for band_y0, band_h in self._bands():
-            cost = bal.measure_cost_map(
-                dict(self._band_kwargs(band_y0, band_h), number=0), spp)
-            tab = bal.build_passign(cost, self.pixels_per_lane, LANE_PAD)
-            tables[band_y0] = torch.from_numpy(tab).to(self.device)
-            stats[band_y0] = bal.balance_stats(cost, tab, self.pixels_per_lane)
-            # mean issued (busy) iterations per sample from the probe
-            stats[band_y0]["issued_per_sample"] = float(
-                np.asarray(cost, np.float64).mean() / spp)
-        self._passign = tables
-        self.balance_stats = stats
-        return stats
-
-    def render(self, samples: Optional[int] = None, on_chunk=None):
-        """Full render: ``samples`` total spp, split into progressive calls
-        of ``config.samples_per_call``.  Returns (accum_sum [H,W,3], total).
-
-        ``accum_dtype="float64"`` reproduces the reference's dvec3
-        accumulation across calls (each call's f32 sum is added into an f64
-        accumulator); in-call sums stay f32."""
-        cfg = self.config
-        total = cfg.samples if samples is None else samples
-        per_call = cfg.samples_per_call or total
-        number = 0
-        done = 0
-        accum = None
-        if cfg.accum_dtype == "float64":
-            while done < total:
-                spp = min(per_call, total - done)
-                chunk = self.render_call(spp, number=number).to(torch.float64)
-                accum = chunk if accum is None else accum + chunk
-                done += spp
-                number += 1
-                if on_chunk is not None:
-                    on_chunk(accum, done)
-            return accum, total
-        # grid backend: up to calls_per_exec progressive calls merged into one
-        # dispatch; the output is bit-identical for any grouping, and
-        # on_chunk fires once per dispatch
-        group_max = max(1, cfg.calls_per_exec) if self.backend == "grid" else 1
-        while done < total:
-            remaining = total - done
-            nc = min(group_max, -(-remaining // per_call))
-            if nc > 1:
-                spp_last = min(per_call, remaining - (nc - 1) * per_call)
-                accum = self.render_call(per_call, number=number, accum=accum,
-                                         n_calls=nc, spp_last=spp_last)
-                step = (nc - 1) * per_call + spp_last
-            else:
-                step = min(per_call, remaining)
-                accum = self.render_call(step, number=number, accum=accum)
-            done += step
-            number += nc
-            if on_chunk is not None:
-                on_chunk(accum, done)
-        return accum, total
-
-    def render_u8(self, samples: Optional[int] = None) -> np.ndarray:
-        """Render and tonemap to the display image (u8 RGB, host array)."""
-        accum, total = self.render(samples)
-        return imageops.accum_to_u8(accum, total).cpu().numpy()
+    render = progressive_render
+    render_u8 = progressive_u8
 
     def save_state(self, path: str, accum, samples_done: int, number: int) -> None:
         """Checkpoint a progressive render (accumulator and progress)."""

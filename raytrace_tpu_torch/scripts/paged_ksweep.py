@@ -58,7 +58,7 @@ def main(argv=None) -> dict:
                  scene=random_sphere_field(100_000), device=device)
     if r.backend != "paged":
         raise RuntimeError(f"the 100k field resolved to {r.backend!r}, not the paged backend")
-    lanes = [-(-(bh * w) // r.pixels_per_lane) for _, bh in r._bands()]
+    lanes = [-(-(kw["band_h"] * w) // kw["pixels_per_lane"]) for kw in r.chunks(r.bands[0])]
 
     k0, auto0 = pkm.K_STEPS, pkm.K_AUTO
     pkm.K_AUTO = False  # the sweep pins exact intervals: no lane-count scaling

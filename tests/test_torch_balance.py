@@ -94,15 +94,15 @@ def test_renderer_balance_equals_unbalanced():
     base = Renderer(_cfg(), device="cpu").render_call(SPP)
     r = Renderer(_cfg(balance_spp=2), device="cpu")
     assert torch.equal(r.render_call(SPP), base)
-    assert set(r.balance_stats) == {0} and r._passign[0].dtype == torch.int32
-    assert r._passign[0].shape == (2, -(-(P // 2) // trace.LANE_PAD) * trace.LANE_PAD)
+    assert set(r.balance_stats) == {0} and r.passign[0].dtype == torch.int32
+    assert r.passign[0].shape == (2, -(-(P // 2) // trace.LANE_PAD) * trace.LANE_PAD)
     stats = r.balance_stats[0]
     assert stats["lanes"] == P // 2 and stats["max_over_mean"] >= 1.0
     assert 1.0 <= stats["issued_per_sample"] <= 30.0
     banded = Renderer(_cfg(balance_spp=2), device="cpu")
     banded.chunk_rows = 10
     assert torch.equal(banded.render_call(SPP), base)
-    assert sorted(banded._passign) == [0, 10, 20]
+    assert sorted(banded.passign) == [0, 10, 20]
 
 
 def test_enable_balance_off_grid_and_render_band_options_raise():

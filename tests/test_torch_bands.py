@@ -58,7 +58,7 @@ def whole(scene):
 
 def test_balanced_bands_equal_the_whole_image(balanced, whole):
     r, img = balanced
-    assert r._passign is not None and img.shape == (H, W, 3)
+    assert r.passign is not None and img.shape == (H, W, 3)
     assert torch.equal(img, whole)
 
 
@@ -81,51 +81,60 @@ def test_balanced_bands_equal_the_plain_reference(balanced):
 
 def test_each_table_lives_on_its_band_device_at_its_chunk_shape(balanced):
     r, _ = balanced
-    assert len(r._passign) == 4
-    for i, tables in enumerate(r._passign):
-        (y0,) = tables  # one chunk a band at this size
-        assert y0 == i * r.band_h
-        tab = tables[y0]
-        assert tab.device == r.devices[i] and tab.dtype == torch.int32
+    # one chunk a band at this size, keyed by its first image row
+    assert sorted(r.passign) == [i * r.band_h for i in range(4)]
+    for band in r.bands:
+        tab = r.passign[band.y0]
+        assert tab.device == band.device and tab.dtype == torch.int32
         m = 1  # 12 rows x 64 over the CPU's lane target
         assert tuple(tab.shape) == (m, -(-(r.band_h * W) // LANE_PAD) * LANE_PAD)
 
 
 def test_balance_stats_has_one_entry_per_table(balanced):
     r, _ = balanced
-    assert set(r.balance_stats) == {(i, y0) for i, t in enumerate(r._passign) for y0 in t}
+    assert set(r.balance_stats) == set(r.passign)
     for s in r.balance_stats.values():
         assert set(s) == {"max_over_mean", "lanes", "issued_per_sample"}
         assert s["max_over_mean"] >= 1.0 and s["lanes"] == r.band_h * W
 
 
-def test_tables_are_the_renderers_for_the_same_rows(balanced, scene):
+@pytest.mark.parametrize("n_bands", [4, 1])
+def test_tables_are_the_renderers_for_the_same_rows(balanced, scene, n_bands):
     """The bands' probes, stepped together, measure the costs
-    ``Renderer.enable_balance`` measures band by band: equal tables."""
-    r, _ = balanced
-    one = Renderer(_cfg(), scene=scene, device="cpu")
+    ``Renderer.enable_balance`` measures chunk by chunk: equal tables and
+    stats for the same rows.  One band is ``Renderer``'s render: the same
+    tables, and the same merged render bit for bit."""
+    cfg = _cfg(calls_per_exec=2)
+    if n_bands == 4:
+        r = balanced[0]
+    else:
+        r = MultiChipRenderer(cfg, scene=scene, devices=["cpu"])
+        r.enable_balance()
+    one = Renderer(cfg, scene=scene, device="cpu")
     one.chunk_rows = r.band_h
     one.enable_balance()
-    for i, tables in enumerate(r._passign):
-        for y0, tab in tables.items():
-            assert torch.equal(tab, one._passign[y0])
-            assert one.balance_stats[y0] == r.balance_stats[(i, y0)]
+    assert sorted(r.passign) == sorted(one.passign)
+    for y0, tab in r.passign.items():
+        assert torch.equal(tab, one.passign[y0])
+    assert r.balance_stats == one.balance_stats
+    if n_bands == 1:
+        assert torch.equal(r.render()[0], one.render()[0])
 
 
 def test_no_balance_spp_takes_the_strided_map(scene, whole, monkeypatch):
-    from raytrace_tpu_torch.parallel import sharding
+    from raytrace_tpu_torch.ops import trace
 
     seen = []
-    orig = sharding.render_band_steps
+    orig = trace.render_band_steps
 
     def steps(*a, **k):
         seen.append(k["passign"])
         return (yield from orig(*a, **k))
 
-    monkeypatch.setattr(sharding, "render_band_steps", steps)
+    monkeypatch.setattr(trace, "render_band_steps", steps)
     r = MultiChipRenderer(_cfg(balance_spp=0), scene=scene, devices=CPU4)
     img, _ = r.render()
-    assert r._passign is None and r.balance_stats is None
+    assert r.passign is None and r.balance_stats is None
     assert len(seen) == 8 and all(p is None for p in seen)
     assert torch.equal(img, whole)
 

@@ -148,10 +148,10 @@ def test_merged_renderer_takes_the_profile_group():
 
     cfg = RenderConfig(samples=8, width=24, height=14, mode="fast", samples_per_call=4)
     r = rmod.Renderer(cfg, device="cpu")
-    r._passign, r.balance_stats = {0: "table"}, {0: {}}
+    r.passign, r.balance_stats = {0: "table"}, {0: {}}
     r2 = bench.merged_renderer(r, cfg)
     assert r2.config.calls_per_exec == profile_for().calls_per_exec == 4
-    assert r2._passign is r._passign and r2.balance_stats is r.balance_stats
+    assert r2.passign is r.passign and r2.balance_stats is r.balance_stats
 
 
 def test_gather_tally_counts_no_launch():
@@ -170,13 +170,13 @@ def test_gather_tally_counts_no_launch():
     assert [c.launches for c in counters] == before
     assert values > 0 and ms is None  # no card rate on the CPU
 
-    kw = r._band_kwargs(0, cfg.height)
+    (kw,) = r.chunks(r.bands[0])
     f, u, scal, vpr, geom = trace.pack_state(
         r.device_scene, kw["vp"], backend="grid", band_h=cfg.height, width=cfg.width, y0=0,
         seed_y0=0, offset_x=0, spp=2, number=0, pixels_per_lane=r.pixels_per_lane,
-        passign=r._passign[0])
+        passign=r.passign[0])
     step = dict(geom, max_depth=kw["max_depth"], skip_tmax=kw["skip_tmax"], rr=kw["rr"],
-                passign=r._passign[0])
+                passign=r.passign[0])
     acc_w, acc_p = (trace.home_accum(None, geom["p_total"], "cpu") for _ in range(2))
     work = gk.grid_step_work(scal, vpr, r.device_scene.grid, f, u, acc_w, **step)
     assert [c.launches for c in counters] == before

@@ -71,8 +71,8 @@ def test_device_trace_raises_without_a_card(tmp_path):
 def test_profile_for_h100(kind):
     p = chips.profile_for(kind)
     assert p is chips.PROFILES[0] and p.kind_substr in kind.lower()
-    assert (p.lanes_per_thread, p.m_max, p.samples_per_call, p.calls_per_exec,
-            p.block, p.k_steps, p.j_steps) == (4, 64, 2500, 4, 128, 40, 2)
+    assert (p.lanes_per_thread, p.samples_per_call, p.calls_per_exec,
+            p.block, p.k_steps, p.j_steps) == (4, 2500, 4, 128, 40, 2)
     assert "H100" in p.note and "700" in p.note
 
 

@@ -36,9 +36,9 @@ from raytrace_tpu_torch import RenderConfig, _build
 from raytrace_tpu_torch.models.scene import (generate_random_scene,
                                              random_sphere_field,
                                              three_sphere_scene)
-from raytrace_tpu_torch.ops import launches
+from raytrace_tpu_torch.ops import launches, trace
 from raytrace_tpu_torch.parallel import devices as pdev
-from raytrace_tpu_torch.parallel import hetero, sharding
+from raytrace_tpu_torch.parallel import hetero
 from raytrace_tpu_torch.parallel.hetero import HeteroRenderer
 from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
 from raytrace_tpu_torch.runtime import tuner
@@ -361,7 +361,7 @@ def _patch_synthetic_devices(monkeypatch, clock, renderer, per_row_s):
         return _in_flight(clock, int(kw["band_h"]) * per_row_s[dev],
                           torch.zeros((int(kw["band_h"]), renderer.config.width, 3)))
 
-    monkeypatch.setattr(sharding, "render_band_steps", fake)
+    monkeypatch.setattr(trace, "render_band_steps", fake)
 
 
 def test_probe_is_per_device_not_serialized(monkeypatch, clock):

@@ -79,12 +79,22 @@ def test_progressive_samples_per_call():
     assert seen == [2, 3]
 
 
-def test_float64_accumulation():
+@pytest.mark.parametrize("bands", [None, 2], ids=["renderer", "two_bands"])
+def test_float64_accumulation(bands):
+    """``accum_dtype="float64"`` sums the calls in float64, on one device
+    and over row bands (``MultiChipRenderer`` on two CPU bands): the bands'
+    sum is the single device's bit for bit."""
+    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
+
     cfg = RenderConfig(samples=2, width=16, height=9, max_depth=6, samples_per_call=1)
+    f64 = dataclasses.replace(cfg, accum_dtype="float64")
     acc32, _ = Renderer(cfg, device="cpu").render()
-    acc64, _ = Renderer(dataclasses.replace(cfg, accum_dtype="float64"),
-                        device="cpu").render()
+    want, _ = Renderer(f64, device="cpu").render()
+    r = (Renderer(f64, device="cpu") if bands is None
+         else MultiChipRenderer(f64, devices=["cpu"] * bands))
+    acc64, _ = r.render()
     assert acc64.dtype == torch.float64
+    assert torch.equal(acc64, want)
     assert torch.allclose(acc64, acc32.double(), rtol=1e-6, atol=1e-6)
 
 

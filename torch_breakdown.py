@@ -310,7 +310,7 @@ def bands(res, scene_name="book"):
     from raytrace_tpu_torch import RenderConfig
     from raytrace_tpu_torch.models.scene import random_sphere_field
     from raytrace_tpu_torch.ops import gridkernel, pagedkernel, trace
-    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer, rows_steps
+    from raytrace_tpu_torch.parallel.sharding import MultiChipRenderer
     from raytrace_tpu_torch.runtime.renderer import Renderer
 
     dev = torch.device("cuda", 0)
@@ -319,14 +319,11 @@ def bands(res, scene_name="book"):
     scene = random_sphere_field(DENSE_N) if scene_name == "dense" else None
     whole = Renderer(cfg, scene=scene, device=dev)
     r = MultiChipRenderer(cfg, scene=scene, devices=[dev] * BANDS)
-    ds = r.device_scenes[dev]
     res["bands_of"] = scene_name
     res["backend"] = r.backend
 
     def band_steps(i):
-        return rows_steps(
-            ds, r.vp, cfg, backend=r.backend, skip_tmax=r.skip_tmax, device=dev,
-            y0=i * r.band_h, rows=r.band_h, seed_y0=i * r.band_h, spp=spp, number=0)
+        return r.band_steps(r.bands[i], spp)
 
     def band(i):
         return trace.run_steps(band_steps(i))
