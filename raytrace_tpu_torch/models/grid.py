@@ -26,10 +26,16 @@ cells are numbered (ix * ncz + iz) and split into CB blocks of 128; a fetch
 gathers all (value, block) rows at the cell's low 7 bits, then selects the
 block by the high bits.
 
-Port copy of ``raytrace_tpu/models/grid.py``, byte-for-byte in behaviour
-(numpy only): the port never imports the JAX package, whose ``__init__``
-imports jax.  ``build_grid`` keeps the block-major layout above, which the
-tests hold byte-equal to the JAX builder's; ``cell_major`` re-lays those
+Port of ``raytrace_tpu/models/grid.py`` (numpy only): the port never
+imports the JAX package, whose ``__init__`` imports jax.  ``build_grid``
+makes the same decisions (eligibility, the boundary-line spill search, the
+layouts, the caps) and keeps the block-major layout above, but builds the
+tables with array operations where the JAX builder loops in Python: the
+spheres expand into (sphere, cell) pairs, one stable sort by cell and a
+rank within each cell give every member its slot, and fancy-index scatters
+and reshapes fill the slot, ctab, atab, ttab and gtab arrays (the build
+runs on every animated frame, on the frame's critical path).  The tests hold
+its tables byte-equal to the JAX builder's; ``cell_major`` re-lays those
 tables once per scene into the layout the port's grid kernel reads
 (``CellTables``): one contiguous record per cell and per sphere, read with
 16-byte loads instead of one 4-byte load per value 512 bytes apart.
@@ -173,8 +179,8 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
     cx, cz = centers[s_idx, 0], centers[s_idx, 2]
     r = radii[s_idx]
     # half-integer lattice at pitch s: cell c covers [(c-0.5)s, (c+0.5)s).
-    # Per-sphere cell ranges of the delta-enlarged AABBs (same f32
-    # expression the old per-sphere registration loop used; /1.0 is exact):
+    # Per-sphere cell ranges of the delta-enlarged AABBs (the JAX builder's
+    # f32 expression; /1.0 is exact):
     rr = r + np.float32(DELTA)
     ix0 = np.floor((cx - rr) / s_pitch + 0.5).astype(np.int64)
     ix1 = np.floor((cx + rr) / s_pitch + 0.5).astype(np.int64)
@@ -239,15 +245,23 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
     cb = -(-n_cells // CELL_LANES)
     cells_pad = cb * CELL_LANES
 
-    # register each sphere in every cell its enlarged AABB overlaps;
-    # s_idx is ascending, so slots end up sorted by sphere index
-    cell_members = [[] for _ in range(cells_pad)]
-    for si in range(len(s_idx)):
-        for ix in range(int(ix0[si]), int(ix1[si]) + 1):
-            for iz in range(int(iz0[si]), int(iz1[si]) + 1):
-                cell = (ix - cmin_x) * ncz + (iz - cmin_z)
-                cell_members[cell].append(si)
-    maxc = max((len(m) for m in cell_members), default=0)
+    # register each sphere in every cell its enlarged AABB overlaps: expand
+    # the spheres into their (sphere, cell) pairs, ix outer and iz inner,
+    # then stable-sort the pairs by cell — s_idx is ascending, so each
+    # cell's members stay sorted by sphere index — and rank them within
+    # their cell (the rank is the member's slot)
+    nz = iz1 - iz0 + 1
+    per_sphere = (ix1 - ix0 + 1) * nz
+    sph = np.repeat(np.arange(len(s_idx)), per_sphere)
+    j = np.arange(len(sph)) - np.repeat(np.cumsum(per_sphere) - per_sphere, per_sphere)
+    ix = ix0[sph] + j // nz[sph]
+    iz = iz0[sph] + j % nz[sph]
+    cell = (ix - cmin_x) * ncz + (iz - cmin_z)
+    order = np.argsort(cell, kind="stable")
+    sph, cell = sph[order], cell[order]
+    counts = np.bincount(cell, minlength=cells_pad)
+    slot = np.arange(len(cell)) - (np.cumsum(counts) - counts)[cell]
+    maxc = int(counts.max())
 
     # slot count: uniform-height scenes keep the 4-value layout (cy is a
     # gscal scalar) with n_slots adapted to the worst cell (4 at the book
@@ -265,13 +279,12 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
     slots_cz = np.zeros((n_slots, cells_pad), np.float32)
     slots_kc = np.full((n_slots, cells_pad), POISON, np.float32)
     slots_id = np.zeros((n_slots, cells_pad), np.float32)
-    for cell, members in enumerate(cell_members):
-        for k, si in enumerate(members):
-            slots_cx[k, cell] = cx[si]
-            slots_cy[k, cell] = cy[si]
-            slots_cz[k, cell] = cz[si]
-            slots_kc[k, cell] = kc[s_idx[si]]
-            slots_id[k, cell] = np.float32(s_idx[si])
+    slots_cx[slot, cell] = cx[sph]
+    slots_cy[slot, cell] = cy[sph]
+    slots_cz[slot, cell] = cz[sph]
+    ids = s_idx[sph]
+    slots_kc[slot, cell] = kc[ids]
+    slots_id[slot, cell] = ids.astype(np.float32)
 
     # ctab rows BLOCK-MAJOR: block*stride + (slot*vals + v) — the whole
     # block-select then runs as [stride, 128] ops, not stride x [1, 128]
@@ -287,12 +300,10 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
         nv = 4 * n_slots
         stride = -(-nv // 8) * 8  # == nv except n_slots in {5, 7}
         per = (slots_cx, slots_cz, slots_kc, slots_id)
-    ctab = np.zeros((stride * cb, CELL_LANES), np.float32)
-    for s in range(n_slots):
-        for b in range(cb):
-            sl = slice(b * CELL_LANES, (b + 1) * CELL_LANES)
-            for v, arr in enumerate(per):
-                ctab[b * stride + s * len(per) + v] = arr[s, sl]
+    ctab = np.zeros((cb, stride, CELL_LANES), np.float32)
+    ctab[:, :nv] = (np.stack(per, 1).reshape(nv, cb, CELL_LANES)
+                    .transpose(1, 0, 2))
+    ctab = ctab.reshape(cb * stride, CELL_LANES)
 
     # attrs by global sphere id: mat, c0.rgb, attr, center.xyz — 8 values
     # in an 8-row stride per block.  The stride exists for Mosaic alignment
@@ -309,10 +320,7 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
     attrs[1:4, :s_tot] = table[:, 13:16].T  # c0
     attrs[4, :s_tot] = table[:, 19]  # attr (fuzz / refraction index)
     attrs[5:8, :s_tot] = table[:, 0:3].T  # center (exact scene f32 values)
-    atab = np.zeros((8 * ab, CELL_LANES), np.float32)
-    for v in range(8):
-        for b in range(ab):
-            atab[b * 8 + v] = attrs[v, b * CELL_LANES : (b + 1) * CELL_LANES]
+    atab = attrs.reshape(8, ab, CELL_LANES).transpose(1, 0, 2).reshape(8 * ab, CELL_LANES)
 
     # Textured FIELD spheres (checker on a small sphere): the fast path
     # reads tex/c1 from the tiny gttab select chain, which only covers
@@ -324,25 +332,24 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
         tvals = np.zeros((4, ids_pad), np.float32)
         tvals[0, :s_tot] = table[:, 12]  # tex
         tvals[1:4, :s_tot] = table[:, 16:19].T  # c1
-        ttab = np.zeros((8 * ab, CELL_LANES), np.float32)
-        for v in range(4):
-            for b in range(ab):
-                ttab[b * 8 + v] = tvals[v, b * CELL_LANES : (b + 1) * CELL_LANES]
+        ttab = np.zeros((ab, 8, CELL_LANES), np.float32)
+        ttab[:, :4] = tvals.reshape(4, ab, CELL_LANES).transpose(1, 0, 2)
+        ttab = ttab.reshape(8 * ab, CELL_LANES)
 
     g_pad = max(4, len(g_idx))
     gtab = np.zeros((g_pad, 16), np.float32)
     gtab[:, 3] = POISON  # padding rows never hit
     gtab[:, 4] = -2.0  # padding idx matches no winner (real ids are >= 0)
-    for k, sphere in enumerate(g_idx):
-        gtab[k, 0:3] = centers[sphere]
-        gtab[k, 3] = kc[sphere]
-        gtab[k, 4] = np.float32(sphere)
-        gtab[k, 5] = np.float32(scene.material[sphere])
-        gtab[k, 6] = np.float32(scene.texture[sphere])
-        gtab[k, 7:10] = np.asarray(scene.color0[sphere], np.float32)
-        gtab[k, 10:13] = np.asarray(scene.color1[sphere], np.float32)
-        gtab[k, 13] = np.float32(scene.attr[sphere])
-    tex_rows = gtab[:len(g_idx)][gtab[:len(g_idx), 6] != 0.0]
+    ng = len(g_idx)
+    gtab[:ng, 0:3] = centers[g_idx]
+    gtab[:ng, 3] = kc[g_idx]
+    gtab[:ng, 4] = g_idx.astype(np.float32)
+    gtab[:ng, 5] = np.asarray(scene.material)[g_idx].astype(np.float32)
+    gtab[:ng, 6] = np.asarray(scene.texture)[g_idx].astype(np.float32)
+    gtab[:ng, 7:10] = np.asarray(scene.color0, np.float32)[g_idx]
+    gtab[:ng, 10:13] = np.asarray(scene.color1, np.float32)[g_idx]
+    gtab[:ng, 13] = np.asarray(scene.attr)[g_idx].astype(np.float32)
+    tex_rows = gtab[:ng][gtab[:ng, 6] != 0.0]
     gttab = np.zeros((max(1, tex_rows.shape[0]), 16), np.float32)
     gttab[:, 4] = -2.0  # padding idx matches no winner
     gttab[: tex_rows.shape[0]] = tex_rows

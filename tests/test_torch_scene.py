@@ -3,7 +3,8 @@
 The port copies the JAX package's numpy modules (it must never import
 ``raytrace_tpu``); these tests pin the copies byte for byte against the
 reference on the book scene at several animation times, the three-sphere
-scene and the 2000-sphere stretch field, and the grid tables at pitch 1 and 2.
+scene, the 2000-sphere stretch field and seeded fields of 40-3,000 spheres,
+and the grid tables at pitch 1 and 2, the slot cap met and crowded past.
 Every call draws the book's layout anew: its ``scene.generate`` span says
 how many engine words it drew.
 """
@@ -42,7 +43,23 @@ SCENES = {
     "three_sphere": lambda m: m.three_sphere_scene(),
     "field2000": lambda m: m.random_sphere_field(2000, seed=1, extent=7.0),
     "tall60": lambda m: m.random_sphere_field(60, seed=3, extent=8.0, y_range=(0.2, 2.5)),
+    # small spheres that carry a texture: the grid then builds its ttab
+    "textured80": lambda m: _textured(m.random_sphere_field(80, seed=5, extent=6.0)),
 }
+# seeded fields of 40-3,000 spheres over a 24x24 square, every other one at
+# varied heights (the 5-value layout); from 1,400 spheres on, cells crowd
+# past the slot cap and the grid says None
+FIELD_COUNTS = (40, 90, 150, 250, 400, 600, 900, 1400, 2100, 3000)
+for _i, _count in enumerate(FIELD_COUNTS):
+    SCENES[f"field{_count}_s{100 + _i}"] = (
+        lambda m, c=_count, i=_i: m.random_sphere_field(
+            c, seed=100 + i, extent=12.0, y_range=(0.1, 2.0) if i % 2 else None))
+
+
+def _textured(sc):
+    tex = np.array(sc.texture)
+    tex[4:int(sc.n_spheres):7] = 1
+    return sc._replace(texture=tex)
 
 
 def _byte_equal(a, b):
@@ -113,16 +130,33 @@ def test_sphere_table_byte_equal(name):
                 jpi.sphere_table(SCENES[name](jscene)))
 
 
-@pytest.mark.parametrize("name,pitch", [("book_t0", 1.0), ("book_t0", 2.0),
-                                        ("tall60", 1.0), ("field2000", 1.0)])
-def test_grid_tables_byte_equal(name, pitch):
+# (scene, pitch, slot cap): the frame loop's times at pitch 1 and 2, both
+# ctab layouts, the ttab, caps at and below a scene's worst cell, the
+# seeded fields.  The cases the builder answers None:
+CAP = tgrid.MAX_N_SLOTS
+GRID_CASES = [("book_t0", 1.0, CAP), ("book_t0", 2.0, CAP), ("tall60", 1.0, CAP),
+              ("field2000", 1.0, CAP),
+              *[(name, pitch, CAP) for name in ("book_t-600", "book_t599.983", "book_t317.41")
+                for pitch in (1.0, 2.0)],
+              ("tall60", 2.0, CAP), ("textured80", 1.0, CAP),
+              ("book_t0", 2.0, 6), ("tall60", 2.0, 4), ("tall60", 2.0, 5),
+              *[(f"field{c}_s{100 + i}", 1.0, CAP) for i, c in enumerate(FIELD_COUNTS)]]
+NO_GRID = {("field2000", 1.0, CAP), ("book_t0", 2.0, 6), ("tall60", 2.0, 4),
+           *[(f"field{c}_s{100 + i}", 1.0, CAP) for i, c in enumerate(FIELD_COUNTS) if c >= 1400]}
+
+
+@pytest.mark.parametrize("name,pitch,max_slots", [
+    pytest.param(*case, id=f"{case[0]}-{case[1]}" + (f"-max{case[2]}" if case[2] != CAP else ""))
+    for case in GRID_CASES])
+def test_grid_tables_byte_equal(name, pitch, max_slots):
     sc = SCENES[name](jscene)
-    ref = jgrid.build_grid(sc, jpi.sphere_table(sc), pitch=pitch)
-    port = tgrid.build_grid(sc, tintersect.sphere_table(sc), pitch=pitch)
-    # the dense 2000-sphere field crowds its cells past the slot cap: no grid
-    assert (ref is None) == (port is None) == (name == "field2000")
+    ref = jgrid.build_grid(sc, jpi.sphere_table(sc), pitch=pitch, max_slots=max_slots)
+    port = tgrid.build_grid(sc, tintersect.sphere_table(sc), pitch=pitch, max_slots=max_slots)
+    # too many cells, or cells crowded past the slot cap: no grid
+    assert (ref is None) == (port is None) == ((name, pitch, max_slots) in NO_GRID)
     if ref is None:
         return
+    assert (port.ttab is not None) == (name == "textured80")
     assert tgrid.GridTables._fields == jgrid.GridTables._fields
     for field in jgrid.GridTables._fields:
         a, b = getattr(port, field), getattr(ref, field)

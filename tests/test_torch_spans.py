@@ -110,6 +110,25 @@ def test_on_one_record_per_call_band_and_launch(backend):
         assert names[name].is_user_annotation is False, name
 
 
+def test_set_scene_logs_one_grid_prepare_per_call():
+    """The frame loop's scene swap: each ``set_scene`` of the book scene logs
+    one ``scene.prepare`` record, tables "grid", under its own
+    ``renderer.set_scene`` (the record scene_prepare_ms.anim reads)."""
+    r = Renderer(RenderConfig(samples=1, width=16, height=8, max_depth=3), device="cpu")
+    times = (0.0, 1 / 60, 317.41, 599.983)
+    t0 = time.perf_counter()
+    with _profiled():
+        for t in times:
+            r.set_scene(generate_random_scene(t))
+    recs = launches.records(t0)
+    puts = [x for x in recs if x.name == "renderer.set_scene"]
+    preps = [x for x in recs if x.name == "scene.prepare"]
+    assert len(puts) == len(preps) == len(times)
+    for put, prep in zip(puts, preps):
+        assert prep.attrs == {"tables": "grid"} and prep.parent == put.id
+        assert put.t0 <= prep.t0 <= prep.t1 <= put.t1
+
+
 @pytest.mark.parametrize("backend", ["grid", "paged"])
 def test_the_image_is_the_same_with_the_profiler_on(backend):
     r = _renderer(backend)
