@@ -64,6 +64,7 @@ MAX_GLOBALS = 16  # genuinely-large spheres (each is a per-segment quadratic
 #                  scenes that don't (the book scene's gtab is its own size)
 MAX_GTAB = 32  # global-table rows incl. boundary-line spills (below)
 POISON = np.float32(3e30)  # kc sentinel: disc < 0 -> NaN sqrt -> miss
+MAX_SPHERES = 4096  # gridkernel._TAG: build_grid refuses scenes this large
 
 
 class GridTables(NamedTuple):
@@ -166,7 +167,7 @@ def build_grid(scene, table: np.ndarray, pitch: float = 1.0,
     # bkey tags global winners as _TAG + id and grid winners as the raw id;
     # a grid sphere id >= _TAG would be misread as a global hit, so scenes
     # with that many spheres fall back to brute force / the paged grid
-    if n >= 4096:  # gridkernel._TAG
+    if n >= MAX_SPHERES:
         return None
     cy = centers[s_idx, 1]
     # Uniform field height (the book scene: every small sphere at y=0.2)

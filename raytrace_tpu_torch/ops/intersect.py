@@ -155,3 +155,30 @@ def sphere_table(scene_arrays) -> np.ndarray:
     tab[:, _C_ATTR0 + A_C1 : _C_ATTR0 + A_C1 + 3] = _padded(scene_arrays.color1)
     tab[:, _C_ATTR0 + A_ATTR] = _padded(scene_arrays.attr)
     return tab
+
+
+def sphere_table_device(scene_arrays):
+    """``sphere_table`` with torch ops on the device of a SceneArrays of
+    tensors (``n_spheres`` a host int): (the same [S', 24] table, the
+    scene's unpadded, unmasked ``sphere_constants`` [S]), bit for bit.  kc is
+    summed in float64 as numpy sums three terms, ((x*x + y*y) + z*z) - r*r,
+    and then rounded to float32."""
+    centers, radii = scene_arrays.centers, scene_arrays.radii
+    s, dev = centers.shape[0], centers.device
+    valid = (torch.arange(s, device=dev) < int(scene_arrays.n_spheres)).to(torch.float32)
+    c64, r64 = centers.to(torch.float64), radii.to(torch.float64)
+    kc_all = ((c64[:, 0] * c64[:, 0] + c64[:, 1] * c64[:, 1]) + c64[:, 2] * c64[:, 2]
+              - r64 * r64).to(torch.float32)
+    pad = S_BLOCK - s % S_BLOCK if s > S_BLOCK and s % S_BLOCK else 0
+    tab = torch.zeros((s + pad, 24), dtype=torch.float32, device=dev)
+    tab[s:, _C_KC] = 3e30
+    tab[:s, _C_CX:_C_CZ + 1] = centers
+    tab[:s, _C_KC] = torch.where(valid > 0, kc_all, torch.full_like(kc_all, 3e30))
+    tab[:s, _C_VALID] = valid
+    tab[:s, _C_ATTR0 + A_CX : _C_ATTR0 + A_CZ + 1] = centers
+    tab[:s, _C_ATTR0 + A_MAT] = scene_arrays.material.to(torch.float32)
+    tab[:s, _C_ATTR0 + A_TEX] = scene_arrays.texture.to(torch.float32)
+    tab[:s, _C_ATTR0 + A_C0 : _C_ATTR0 + A_C0 + 3] = scene_arrays.color0
+    tab[:s, _C_ATTR0 + A_C1 : _C_ATTR0 + A_C1 + 3] = scene_arrays.color1
+    tab[:s, _C_ATTR0 + A_ATTR] = scene_arrays.attr
+    return tab, kc_all

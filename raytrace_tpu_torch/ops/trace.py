@@ -50,7 +50,7 @@ import torch
 
 from ..config import MAX_DEPTH, MAX_RAY_COLLISION_DISTANCE, T_MIN
 from ..models.camera import Camera, calculate_viewport
-from ..models.grid import build_grid, cell_major
+from ..models.grid import MAX_SPHERES, build_grid, cell_major
 from ..models.paged_grid import (P_FMAXX, P_FMAXZ, P_FMINX, P_FMINZ, P_INVS,
                                  P_XHI, P_XLO, P_YHI, P_YLO, P_ZHI, P_ZLO,
                                  PagedGridTables, build_paged_grid)
@@ -60,7 +60,7 @@ from . import launches
 from . import materials
 from . import rng as rngops
 from .intersect import (intersect_bruteforce, intersect_matmul,
-                        sphere_constants, sphere_table)
+                        sphere_constants, sphere_table, sphere_table_device)
 
 _SKY = (0.7, 0.8, 1.0)  # shader.rmiss:15
 LANE_PAD = 128  # kernel lanes are padded to a multiple of one CUDA block
@@ -71,8 +71,9 @@ KERNEL_BACKENDS = ("mega", "grid", "paged")
 
 class DeviceScene(NamedTuple):
     """Scene tables: numpy on the host (``prepare_scene``) or torch tensors
-    on a device (``device_scene_from_numpy``); same fields as the JAX
-    package's DeviceScene."""
+    on a device (``device_scene_from_numpy``, or built there by
+    ``prepare_scene_device``); same fields as the JAX package's
+    DeviceScene."""
 
     centers: object  # [S,3] f32
     centers_t: object  # [3,S] f32
@@ -110,7 +111,7 @@ def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
     grid tables and, for a scene the grid cannot hold, the paged-grid tables.
     ``grid_pitch``: cell size in world units, or "auto" (pitch 2 when it
     keeps the 4-value layout, else pitch 1)."""
-    with launches.span("scene.prepare") as rec:
+    with launches.span("scene.prepare", route="host") as rec:
         centers = np.asarray(scene.centers, np.float32)
         radii = np.asarray(scene.radii, np.float32)
         n = int(scene.n_spheres)
@@ -122,7 +123,12 @@ def prepare_scene(scene: SceneArrays, grid_pitch=1.0) -> DeviceScene:
                 grid = build_grid(scene, table, pitch=1.0)
         else:
             grid = build_grid(scene, table, pitch=float(grid_pitch))
-        paged = None if grid is not None else build_paged_grid(scene, table)
+        paged = None
+        if grid is None:
+            # built with torch ops on the CPU, kept as numpy
+            paged = _build_paged(scene, table, "host")
+            if paged is not None:
+                paged = PagedGridTables(*(None if t is None else t.numpy() for t in paged))
         rec.set(tables="grid" if grid is not None else "paged" if paged is not None else None)
     return DeviceScene(
         centers=centers,
@@ -172,6 +178,79 @@ def device_scene_from_numpy(ds, device) -> DeviceScene:
               for f in DeviceScene._fields if f not in ("grid", "paged")}
     return DeviceScene(**fields, grid=_cell_tables(ds.grid, device),
                        paged=_tables(ds.paged, PagedGridTables, device))
+
+
+def _build_paged(scene: SceneArrays, table, route: str):
+    """``build_paged_grid`` on ``table``'s device, in the span
+    ``paged.build``."""
+    with launches.span("paged.build", route=route, n_spheres=int(scene.n_spheres)) as rec:
+        stats = {}
+        paged = build_paged_grid(scene, table, stats=stats)
+        rec.set(**stats)
+    return paged
+
+
+def builds_on_device(scene: SceneArrays) -> bool:
+    """True for a scene the grid refuses by its size, so it takes the paged
+    tables (or none): only its own arrays go to a device
+    (``scene_to_device``), and the device builds its tables
+    (``prepare_scene_device``).  Smaller scenes' tables are built on the host
+    (``prepare_scene``)."""
+    return int(scene.n_spheres) >= MAX_SPHERES
+
+
+_SCENE_FIELDS = {"centers": np.float32, "radii": np.float32, "material": np.int32,
+                 "texture": np.int32, "color0": np.float32, "color1": np.float32,
+                 "attr": np.float32}
+
+
+def scene_to_device(scene: SceneArrays, device):
+    """The scene's own arrays on ``device``: (a SceneArrays of tensors there,
+    ``n_spheres`` a host int; the bytes sent).  They are packed into one
+    buffer of pinned host memory and sent in one copy that the host does not
+    wait for; each field is a view of the device's copy."""
+    device = torch.device(device)
+    parts = [np.asarray(getattr(scene, f), dt) for f, dt in _SCENE_FIELDS.items()]
+    starts = np.cumsum([0] + [-(-p.size // 64) * 64 for p in parts])  # 256-B aligned
+    host = torch.empty(int(starts[-1]), dtype=torch.int32, pin_memory=device.type == "cuda")
+    words = host.numpy()
+    for p, o in zip(parts, starts):
+        words[o : o + p.size] = p.reshape(-1).view(np.int32)
+    sent = host.to(device, non_blocking=True)
+    fields = {}
+    for (f, dt), p, o in zip(_SCENE_FIELDS.items(), parts, starts):
+        t = sent[o : o + p.size]
+        fields[f] = (t if dt == np.int32 else t.view(torch.float32)).view(p.shape)
+    return SceneArrays(**fields, n_spheres=int(scene.n_spheres)), host.numel() * 4
+
+
+def prepare_scene_device(scene: SceneArrays) -> DeviceScene:
+    """``prepare_scene`` on the device of a SceneArrays of tensors
+    (``scene_to_device``) of a scene the grid refuses by its size: the
+    sphere table and the paged tables built there, equal field by field and
+    byte for byte to ``device_scene_from_numpy(prepare_scene(scene), device)``."""
+    n = int(scene.n_spheres)
+    if n < MAX_SPHERES:
+        raise ValueError(f"the grid may take a scene of {n} spheres: prepare it on the host")
+    with launches.span("scene.prepare", route="device") as rec:
+        table, kc = sphere_table_device(scene)
+        paged = _build_paged(scene, table, "device")
+        rec.set(tables="paged" if paged is not None else None)
+    centers = scene.centers
+    return DeviceScene(
+        centers=centers,
+        centers_t=centers.T.contiguous(),
+        radii=scene.radii,
+        kc=kc,
+        valid=torch.arange(centers.shape[0], device=centers.device) < n,
+        material=scene.material,
+        texture=scene.texture,
+        color0=scene.color0,
+        color1=scene.color1,
+        attr=scene.attr,
+        table=table,
+        paged=paged,
+    )
 
 
 def tmax_never_binds(scene: SceneArrays, camera: Camera) -> bool:

@@ -132,9 +132,33 @@ class Band(NamedTuple):
 
 def upload_per_device(scene: SceneArrays, devices: Sequence[torch.device]) -> dict:
     """{device: DeviceScene}: the scene's tables once on each distinct
-    device (bands on one device share them)."""
-    host = prepare_scene(scene)
-    return {d: device_scene_from_numpy(host, d) for d in dict.fromkeys(devices)}
+    device (bands on one device share them).  For a scene the grid refuses
+    by its size (``trace.builds_on_device``) only the scene's own arrays go
+    up, and each device builds its tables; otherwise ``prepare_scene``
+    builds them once on the host and they go up whole."""
+    devs = list(dict.fromkeys(devices))
+    on_device = trace.builds_on_device(scene)
+    host = None if on_device else prepare_scene(scene)
+    with launches.span("scene.upload", devices=len(devs)) as rec:
+        if on_device:
+            sent = {d: trace.scene_to_device(scene, d) for d in devs}
+            rec.set(bytes=sum(n_bytes for _, n_bytes in sent.values()))
+        else:
+            out = {d: device_scene_from_numpy(host, d) for d in devs}
+            if rec is not launches.NO_RECORD:
+                rec.set(bytes=sum(_nbytes(ds) for ds in out.values()))
+    if on_device:
+        out = {d: trace.prepare_scene_device(arrays) for d, (arrays, _) in sent.items()}
+    return out
+
+
+def _nbytes(ds: DeviceScene) -> int:
+    """The bytes of a DeviceScene's tensors, its tables' included."""
+    ts = [getattr(ds, f) for f in DeviceScene._fields if f not in ("grid", "paged")]
+    for tables in (ds.grid, ds.paged):
+        if tables is not None:
+            ts += list(tables)
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
 class BandPlan:

@@ -27,17 +27,24 @@ int32 too, and on both of the probe's axis-1 paths, alone and in one
 launch; for the section-cost probes (one library per switch set), every
 grid duplication == the production kernel and ``freeze`` with each removal
 == the plain version, on every grid table layout and all four paged
-template instances.
+template instances; for the paged tables built on the card, the 100k field's
+whole DeviceScene at 50 frame times against the host's, the split
+(``hot_slots=-1``), textured and varied-height tables against the CPU build,
+and every wait of the build and of a frame's ``set_scene`` counted.
 """
+
+import warnings
 
 import pytest
 import torch
 
+from raytrace_tpu_torch import RenderConfig
+from raytrace_tpu_torch.models.paged_grid import build_paged_grid
 from raytrace_tpu_torch.models.scene import (CHECKERED, generate_random_scene,
                                              random_sphere_field, three_sphere_scene)
 from raytrace_tpu_torch.ops import (gridkernel, intersect, megakernel, pagedkernel,
                                     pallas_intersect, trace)
-from raytrace_tpu_torch.runtime.renderer import reference_camera
+from raytrace_tpu_torch.runtime.renderer import Renderer, reference_camera
 from raytrace_tpu_torch.scripts import bench_gather
 
 RR = (1, 16, 0.05)
@@ -531,3 +538,98 @@ def test_pack_state_kernel_matches_plain(cuda, name):
     f, u, *_ = _pack_pair(ds, backend, w, h, **kw)
     n_alive = int(u[megakernel.U_ALIVE].sum())  # the row of every layout
     assert n_alive == (0 if kw.get("spp", 2) == 0 else -(-w * h // m))
+
+
+# 50 frame times: the ends of the cell's 600-s range and 48 frames of 1/60 s
+FIELD_TIMES = (0.0, 599.983) + tuple(317.41 + i / 60 for i in range(48))
+
+
+def _field100k(t=0.0, kind="plain"):
+    sc = random_sphere_field(100_000, seed=0, extent=50.0, t=t,
+                             y_range=(0.1, 2.0) if kind == "heights" else None)
+    if kind == "textured":
+        sc.texture[4::3] = CHECKERED
+        sc.color1[4::3] = (0.9, 0.2, 0.4)
+    return sc
+
+
+def _same_bits(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = torch.as_tensor(a).to(b.device), b
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", FIELD_TIMES)
+def test_the_field_prepared_on_the_card_equals_the_host_scene(cuda, t):
+    """``prepare_scene_device`` (the animated field's route) == the host's
+    ``prepare_scene`` uploaded, field by field and byte for byte: CUDA's
+    float32 divisions and reductions fix the same lattice as the CPU's."""
+    scene = _field100k(t)
+    want = trace.device_scene_from_numpy(trace.prepare_scene(scene), cuda)
+    got = trace.prepare_scene_device(trace.scene_to_device(scene, cuda)[0])
+    assert got.paged is not None
+    for f in trace.DeviceScene._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        if f == "paged":
+            for g in type(a)._fields:
+                assert _same_bits(getattr(a, g), getattr(b, g)), g
+        else:
+            assert _same_bits(a, b), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hot", "textured", "heights"])
+def test_paged_tables_built_on_the_card_equal_the_cpu_build(cuda, kind):
+    scene = _field100k(2.5, kind)
+    kw = {"hot_slots": -1} if kind == "hot" else {}
+    want = build_paged_grid(scene, intersect.sphere_table(scene), **kw)
+    on = trace.scene_to_device(scene, cuda)[0]
+    got = build_paged_grid(on, intersect.sphere_table_device(on)[0], **kw)
+    assert want is not None and got is not None
+    assert (got.govf is not None) == (kind == "hot")
+    assert (got.has_tex is not None) == (kind == "textured")
+    assert (got.has_cy is not None) == (kind == "heights")
+    for g in type(want)._fields:
+        assert _same_bits(getattr(want, g), getattr(got, g)), g
+
+
+def _waits(fn):
+    """(fn's result, the times the host waited for the card inside it, the
+    warnings caught), the waits as CUDA's sync debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    said = [str(w.message) for w in caught]
+    return out, sum(m.startswith("called a synchronizing CUDA operation") for m in said), said
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hot", [None, -1], ids=["whole", "split"])
+def test_the_paged_build_counts_every_wait(cuda, hot):
+    on = trace.scene_to_device(_field100k(1.0), cuda)[0]
+    table = intersect.sphere_table_device(on)[0]
+    _waits(lambda: build_paged_grid(on, table, hot_slots=hot))  # warm-up, the mode's too
+    stats = {}
+    _, waits, said = _waits(lambda: build_paged_grid(on, table, hot_slots=hot, stats=stats))
+    assert waits == stats["syncs"] == (6 if hot == -1 else 5), said
+
+
+@pytest.mark.gpu
+def test_a_frames_set_scene_waits_only_for_the_build(cuda):
+    """A frame's scene swap of the 100k field: the scene's arrays go up
+    without a wait and the host waits only for the build's five reads."""
+    r = Renderer(RenderConfig(samples=1, width=64, height=32, max_depth=4, backend="auto"),
+                 scene=_field100k(0.0), device=cuda)
+    r.set_scene(_field100k(1 / 60))
+    scene = _field100k(2 / 60)
+    _, waits, said = _waits(lambda: r.set_scene(scene))
+    assert r.backend == "paged" and waits == 5, said

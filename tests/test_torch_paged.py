@@ -80,6 +80,7 @@ def test_builder_byte_equal_to_jax(name):
         a, b = getattr(own, field), getattr(ref, field)
         assert (a is None) == (b is None), field
         if a is not None:
+            a = a.numpy()
             assert a.dtype == b.dtype and a.shape == b.shape, field
             assert a.tobytes() == b.tobytes(), field
     assert (own.has_cy is not None) == ("y_range" in kw)

@@ -1,5 +1,6 @@
 """Port: the program's spans (ops/launches.py ``span``, ``section``,
-``records``) in the renderer, the band drivers and the scene generators.
+``records``) in the renderer, the band drivers, the scene generators and
+the scene's tables (their upload and, on either route, the paged build).
 
 Off (no profiler running) a span records nothing and opens no profiler
 range.  On, each render call logs one ``renderer.call``, one ``band.setup``
@@ -19,7 +20,8 @@ import torch
 
 from raytrace_tpu_torch import RenderConfig
 from raytrace_tpu_torch.models.scene import generate_random_scene, random_sphere_field
-from raytrace_tpu_torch.ops import gridkernel, launches, pagedkernel
+from raytrace_tpu_torch.models.grid import MAX_SPHERES
+from raytrace_tpu_torch.ops import gridkernel, launches, pagedkernel, trace
 from raytrace_tpu_torch.ops.trace import LANE_PAD
 from raytrace_tpu_torch.runtime.renderer import Renderer
 
@@ -112,8 +114,8 @@ def test_on_one_record_per_call_band_and_launch(backend):
 
 def test_set_scene_logs_one_grid_prepare_per_call():
     """The frame loop's scene swap: each ``set_scene`` of the book scene logs
-    one ``scene.prepare`` record, tables "grid", under its own
-    ``renderer.set_scene`` (the record scene_prepare_ms.anim reads)."""
+    one ``scene.prepare`` record, tables "grid" built on the host, under its
+    own ``renderer.set_scene`` (the record scene_prepare_ms.anim reads)."""
     r = Renderer(RenderConfig(samples=1, width=16, height=8, max_depth=3), device="cpu")
     times = (0.0, 1 / 60, 317.41, 599.983)
     t0 = time.perf_counter()
@@ -125,8 +127,64 @@ def test_set_scene_logs_one_grid_prepare_per_call():
     preps = [x for x in recs if x.name == "scene.prepare"]
     assert len(puts) == len(preps) == len(times)
     for put, prep in zip(puts, preps):
-        assert prep.attrs == {"tables": "grid"} and prep.parent == put.id
+        assert prep.attrs == {"tables": "grid", "route": "host"} and prep.parent == put.id
         assert put.t0 <= prep.t0 <= prep.t1 <= put.t1
+
+
+def _route(monkeypatch, route):
+    """Build a large scene's tables by ``route``: "device" (a scene the grid
+    refuses by its size takes it by itself) or "host" (``prepare_scene``)."""
+    monkeypatch.setattr(trace, "builds_on_device",
+                        lambda scene: route == "device" and int(scene.n_spheres) >= MAX_SPHERES)
+
+
+@pytest.mark.parametrize("route", ["host", "device"])
+def test_set_scene_logs_the_upload_and_the_paged_build(route, monkeypatch):
+    """A field too large for the grid: ``set_scene`` logs ``scene.upload``
+    (the bytes sent and the devices), ``scene.prepare`` (route and tables)
+    and under it ``paged.build`` (route, spheres, pairs, pages, slots and
+    host reads of the device), each under ``renderer.set_scene``."""
+    _route(monkeypatch, route)
+    scene = random_sphere_field(5000, seed=4, extent=9.0, t=1.0)
+    r = Renderer(RenderConfig(samples=1, width=16, height=8, max_depth=3), scene=scene,
+                 device="cpu")
+    t0 = time.perf_counter()
+    with _profiled() as prof:
+        r.set_scene(random_sphere_field(5000, seed=4, extent=9.0, t=2.0))
+    by_name = {}
+    for rec in launches.records(t0):
+        by_name.setdefault(rec.name, []).append(rec)
+    (put,) = by_name["renderer.set_scene"]
+    (up,) = by_name["scene.upload"]
+    (prep,) = by_name["scene.prepare"]
+    (build,) = by_name["paged.build"]
+    assert up.parent == put.id and prep.parent == put.id and build.parent == prep.id
+    assert prep.t0 <= build.t0 <= build.t1 <= prep.t1
+    assert prep.attrs == {"route": route, "tables": "paged"}
+    assert up.attrs["devices"] == 1
+    if route == "host":  # the whole DeviceScene goes up, after the build
+        assert up.t0 >= prep.t1 and up.attrs["bytes"] > 20 * scene.centers.nbytes
+    else:  # the scene's own arrays, 256-byte aligned, before the build
+        assert up.t1 <= prep.t0 and up.attrs["bytes"] == 4 * 13 * 5120
+    assert build.attrs["route"] == route and build.attrs["syncs"] == 5
+    want = trace.prepare_scene(scene).paged
+    assert build.attrs["n_spheres"] == 5004
+    assert build.attrs["n_pages"] == want.lids.shape[0]
+    assert build.attrs["n_slots"] == want.lids.shape[1]
+    assert build.attrs["pairs"] > 5000
+    names = {e.name for e in prof.events()}
+    assert {"rt.scene.upload", "rt.paged.build"} <= names
+
+
+@pytest.mark.parametrize("route", ["host", "device"])
+def test_the_upload_and_the_build_record_nothing_off(route, monkeypatch):
+    _route(monkeypatch, route)
+    r = Renderer(RenderConfig(samples=1, width=16, height=8, max_depth=3),
+                 scene=random_sphere_field(5000, seed=4, extent=9.0), device="cpu")
+    t0 = time.perf_counter()
+    r.set_scene(random_sphere_field(5000, seed=4, extent=9.0, t=2.0))
+    assert r.backend == "paged"
+    assert launches.records(t0) == []
 
 
 @pytest.mark.parametrize("backend", ["grid", "paged"])
